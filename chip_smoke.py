@@ -7,23 +7,30 @@ source, in parallel), then:
 
 1. prints the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s
    name and power limit) and turns TF32 off for the f32 checks;
-2. holds each kernel against its plain PyTorch version on the card: the cost
-   volume at the serving shape (2 pairs, 192x256, 64 planes) in f32 and
-   bf16, at (30, 100, 6), (40, 130, 9) and 480x640x64; depth->normal at
-   B in {1, 8} x k in {5, 9} at 192x256, at 480x640 and at an odd size,
-   judged against the plain version in f64;
+2. holds each kernel against its plain PyTorch version on the card, asking
+   for exact agreement (max abs error 0): the cost volume at the serving
+   shapes (2 and 16 pairs, 192x256, 64 planes) in f32 and bf16, at
+   (30, 100, 6), (40, 130, 9), an odd width (3 pairs, 31, 97, 5) and
+   480x640x64, and under coefficients that
+   put taps at and beyond every edge of the source and past the coordinate
+   clip; depth->normal at B in {1, 8} x k in {5, 9} at 192x256, at 480x640
+   and at an odd size, also judged against the plain version in f64;
 3. serves the 3-view refined forward at full width (CNMModel, 64 planes,
    192x256, bf16, seeded weights whose BatchNorm statistics are taken from
    synthetic frames) through ``InferenceSession.predict`` on
    requests of batch 1 (uint8), 3 (f32, padded to bucket 4) and 8, and on an
    f16 wire, with both kernels' launch counters set to 0 just before and
    read just after; checks shapes, ranges, unit normals, the bf16 session
-   against an f32 one and the f32 kernel session against an f32 session of
-   plain versions;
-4. times each kernel and its plain version (CUDA events, median of 20 runs
-   after warm-up) and ``predict`` at buckets 1 and 8;
-5. traces one ``predict`` at buckets 1 and 8 (torch.profiler) and prints the
-   device's busy time, its idle share and the kernels that take the time.
+   against an f32 one, the f32 kernel session against an f32 session of
+   plain versions, and that every norm layer of the bf16 session keeps f32
+   parameters and statistics;
+4. times each kernel at the shapes of buckets 1 and 8 (cost volume: 2 and
+   16 pairs; depth->normal: B = 1 and 8) beside its bound, and its plain
+   version at bucket 1 (CUDA events, median of 20 runs after warm-up), and
+   ``predict`` at buckets 1 and 8;
+5. traces one ``predict`` at buckets 1 and 8 (torch.profiler), prints the
+   device's busy time, its idle share and the kernels that take the time,
+   and fails if a batch norm kernel ran with bf16 statistics.
 
 Prints the build seconds, the kernel table as one JSON line, the card's
 name and power limit, and as its last line
@@ -63,27 +70,6 @@ def normals_flops(k: int) -> int:
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def device_ms(torch, fn, runs=20, reps=10):
-    """Median over ``runs`` of the device time per call of ``fn``, from CUDA
-    events around ``reps`` back-to-back calls queued behind a device-side
-    sleep (so the host's enqueue time does not show as gaps)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)  # ~25 ms of device time at ~2 GHz
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
 
 
 def synthetic_batch(n, height, width, views, seed):
@@ -140,16 +126,55 @@ def check_cost_volume(torch, h, w, planes, B, seed, batch=None):
     bf16 = kcv.cost_volume(ref, src, rc, sc, 3.0, planes, torch.bfloat16)
     torch.cuda.synchronize()
     assert f32.shape == plain.shape == (B, h, w, planes), (f32.shape, plain.shape)
+    return volume_errors(torch, f32, bf16, plain, f"B={B} {h}x{w}x{planes}")
+
+
+def volume_errors(torch, f32, bf16, plain, what):
+    """Max |kernel - plain| in f32 and max |kernel - bf16(plain)| in bf16;
+    both must be 0 (the kernel rounds where the plain version rounds)."""
     err = (f32 - plain).abs().max().item()
-    # bf16 rounding is within half an ulp, 2^-8 of the value
-    err_bf = ((bf16.float() - plain).abs() - 2.0**-8 * plain.abs()).max().item()
-    err_bf_abs = (bf16.float() - plain.to(torch.bfloat16).float()).abs().max().item()
-    print(f"check cost_volume B={B} {h}x{w}x{planes}: max|kernel-plain| f32 {err:.3e} "
-          f"(tol 1e-4); bf16 max(|kernel-plain| - 2^-8 |plain|) {err_bf:.3e} (tol 1e-4), "
-          f"max|kernel-bf16(plain)| {err_bf_abs:.3e}")
-    assert err <= 1e-4, err
-    assert err_bf <= 1e-4, err_bf
-    return err, err_bf_abs
+    err_bf = (bf16.float() - plain.to(torch.bfloat16).float()).abs().max().item()
+    print(f"check cost_volume {what}: max|kernel-plain| f32 {err:.3e}, "
+          f"max|kernel-bf16(plain)| bf16 {err_bf:.3e} (both must be 0)")
+    assert err == 0 and err_bf == 0, (err, err_bf)
+    return err, err_bf
+
+
+def check_cost_volume_edges(torch, seed):
+    """Kernel vs plain under coefficients whose samples cover the source's
+    edges and beyond: pair 0 maps the reference onto x in about [-3, W + 9]
+    and y in [-3, H + 6] as the planes sweep, so x0 takes -3, -2, -1, W - 1,
+    W and beyond; pair 1's Z crosses 0 inside the image, so coordinates
+    reach the +-100 max(H, W) clip and the z-guard region."""
+    from cnmnet_tpu_torch.kernels import cost_volume as kcv
+    from cnmnet_tpu_torch.ops import cost_volume as pcv
+
+    rng = np.random.default_rng(seed)
+    ref = torch.from_numpy(rng.standard_normal((2, H, W, 3)).astype(np.float32)).cuda()
+    src = torch.from_numpy(rng.standard_normal((2, H, W, 3)).astype(np.float32)).cuda()
+    coefs = torch.tensor([
+        [1.05, 0.02, -3.3, 0.01, 1.04, -2.7, 0.0, 0.0, 1.0, 3.0, 2.0, 0.0],
+        [1.0, 0.05, 0.5, -0.03, 1.0, 0.25, 1e-4, 2e-5, -0.0125, 0.5, 0.5, 0.004],
+    ], dtype=torch.float32).cuda()
+    idepths = pcv.idepth_hypotheses(3.0, P, ref.device)
+    k = coefs[:, :9].reshape(2, 3, 3, 1)
+    v, u = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=ref.device),
+                          torch.arange(W, dtype=torch.float32, device=ref.device), indexing="ij")
+    u, v = u.reshape(-1), v.reshape(-1)
+    terms = k[:, :, 0] * u + k[:, :, 1] * v + k[:, :, 2]  # plane_sweep_terms' rounding
+    KT = coefs[:, 9:, None]
+    plain = pcv.plane_sweep_cost_volume(ref, src, terms, KT, idepths)
+    f32 = kcv.cost_volume_kernel(ref, src, coefs, idepths)
+    bf16 = kcv.cost_volume_kernel(ref, src, coefs, idepths, torch.bfloat16)
+    x, y = pcv._sweep_coords(terms, KT, idepths, H, W)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    torch.cuda.synchronize()
+    for edge in (-3, -2, -1, W - 1, W, W + 1):
+        assert bool((x0[0] == edge).any()), f"no tap at x0 = {edge}"
+    for edge in (-3, -2, -1, H - 1, H, H + 1):
+        assert bool((y0[0] == edge).any()), f"no tap at y0 = {edge}"
+    assert bool((x[1].abs() == 100.0 * max(H, W)).any()), "the clip was not reached"
+    return volume_errors(torch, f32, bf16, plain, f"edge coefficients B=2 {H}x{W}x{P}")
 
 
 def oracle_f64(torch, depth, kinv, k):
@@ -180,8 +205,8 @@ def angles(torch, n, truth, det):
 def check_normals(torch, depth, kinv, k):
     """Kernel no worse than the f32 plain version against the f64 plain
     version (mean < 2x + 0.05 deg, max < max(2x, 1 deg)), and equal to the
-    f32 plain version to 1e-6 at every pixel (both round at the same steps
-    in the same order); returns the max |kernel - plain f32|."""
+    f32 plain version at every pixel (both round at the same steps in the
+    same order); returns the max |kernel - plain f32|, which must be 0."""
     from cnmnet_tpu_torch.kernels import normals as kn
     from cnmnet_tpu_torch.ops import normals as pn
 
@@ -197,11 +222,11 @@ def check_normals(torch, depth, kinv, k):
     print(f"check depth_to_normal B={B} {h}x{w} k={k}: angle to f64 kernel mean "
           f"{a.mean().item():.4f} max {a.max().item():.4f} deg, plain f32 mean "
           f"{r.mean().item():.4f} max {r.max().item():.4f} deg over {int(keep.sum())} "
-          f"well-posed pixels; max|kernel-plain| {err:.3e}, pixels off by > 1e-6: "
-          f"{int((diff > 1e-6).sum())} of {diff.numel()}")
+          f"well-posed pixels; max|kernel-plain| {err:.3e} (must be 0), pixels that "
+          f"differ: {int((diff > 0).sum())} of {diff.numel()}")
     assert keep.sum() > 0.5 * keep.numel()
     assert a.mean() < r.mean() * 2 + 0.05 and a.max() < max(r.max().item() * 2, 1.0)
-    assert err <= 1e-6, err
+    assert err == 0, err
     return err
 
 
@@ -241,6 +266,21 @@ def calibrate_batch_norm(torch, model, images, cams):
         bn.momentum = 0.1
 
 
+def check_norms_f32(torch, model):
+    """A bf16 model keeps every norm layer's parameters and running
+    statistics in f32 (as the JAX package's bf16 path does) and its conv
+    weights in bf16."""
+    from torch import nn
+
+    norms = [m for m in model.modules() if isinstance(m, (nn.BatchNorm2d, nn.GroupNorm))]
+    kinds = {t.dtype for m in norms for t in (*m.parameters(recurse=False),
+                                              *m.buffers(recurse=False)) if t.is_floating_point()}
+    convs = {m.weight.dtype for m in model.modules() if isinstance(m, nn.Conv2d)}
+    print(f"bf16 session: {len(norms)} norm layers hold {sorted(map(str, kinds))}; "
+          f"conv weights {sorted(map(str, convs))}")
+    assert norms and kinds == {torch.float32} and convs == {torch.bfloat16}, (kinds, convs)
+
+
 def serve_phase(torch, counters):
     from cnmnet_tpu_torch.config import Config
     from cnmnet_tpu_torch.data.pipeline import normalize_images, quantize_images_u8
@@ -263,6 +303,7 @@ def serve_phase(torch, counters):
     session = InferenceSession(cfg, state_dict=weights, device="cuda")
     wire16 = InferenceSession(cfg, state_dict=weights, wire_dtype="float16", device="cuda")
     assert session.compute_dtype == torch.bfloat16
+    check_norms_f32(torch, session.model)
     session.predict(u8[:1], cams[:1])  # loads the kernels before the counted run
 
     for c in counters.values():
@@ -333,11 +374,13 @@ def serve_phase(torch, counters):
 # kernel name fragment -> class, first match wins
 KERNEL_CLASSES = (
     ("cost_volume_kernel", "cost volume"),
+    ("pack_source_kernel", "cost volume"),
     ("depth_to_normal_kernel", "depth->normal"),
     ("nchwToNhwc", "layout transposes"),
     ("nhwcToNchw", "layout transposes"),
     ("upsample", "upsampling"),
     ("batch_norm", "batch norm"),
+    ("bn_fw", "batch norm"),
     ("xmma", "convolutions"),
     ("cutlass", "convolutions"),
     ("conv", "convolutions"),
@@ -368,6 +411,17 @@ def profile_predict(torch, session, images, cams):
     return wall_ms, sum(r[1] for r in rows), classes, rows
 
 
+def check_batch_norm_kernels(prof_rows):
+    """Every traced batch norm kernel normalised with f32 statistics: the
+    native kernel's second template argument is the statistics' type."""
+    norms = [key for key, _, _ in prof_rows if "batch_norm" in key or "bn_fw" in key]
+    for key in norms:
+        print(f"  batch norm kernel: {key[:120]}")
+    assert norms, "no batch norm kernel in the trace"
+    bf16_stats = [k for k in norms if "<c10::BFloat16, c10::BFloat16" in k]
+    assert not bf16_stats, f"batch norm ran with bf16 statistics: {bf16_stats}"
+
+
 def main() -> int:
     import torch
 
@@ -378,6 +432,7 @@ def main() -> int:
 
     from cnmnet_tpu_torch.kernels import build
     from cnmnet_tpu_torch.kernels import cost_volume as kcv
+    from cnmnet_tpu_torch.kernels.ablate import device_ms
     from cnmnet_tpu_torch.kernels import normals as kn
     from cnmnet_tpu_torch.ops import cost_volume as pcv
     from cnmnet_tpu_torch.ops import normals as pn
@@ -398,7 +453,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
     print(f"build: {build_s:.2f} s for {len(logs)} sources")
 
@@ -407,7 +462,11 @@ def main() -> int:
     _, cv_err = check_cost_volume(torch, H, W, P, 2, 0, main_batch)
     check_cost_volume(torch, 30, 100, 6, 2, 1)
     check_cost_volume(torch, 40, 130, 9, 2, 2)
+    check_cost_volume(torch, 31, 97, 5, 3, 7)
     check_cost_volume(torch, 480, 640, 64, 2, 3)
+    batch8 = synthetic_batch(8, H, W, 3, seed=6)
+    check_cost_volume(torch, H, W, P, 16, 0, batch8)  # bucket 8: 16 pairs
+    check_cost_volume_edges(torch, 4)
     nrm_err = None
     for B in (1, 8):
         depth, kinv = normals_inputs(torch, B, H, W, seed=20 + B)
@@ -422,29 +481,40 @@ def main() -> int:
     counters = {"cost_volume": kcv.cost_volume_kernel, "depth_to_normal": kn.depth_to_normal_kernel}
     session, u8, cams, launches = serve_phase(torch, counters)
 
-    # 4. times at the serving shapes (batch 1: 2 pairs, one depth map)
+    # 4. times at the serving shapes (bucket 1: 2 pairs, one depth map;
+    # bucket 8: 16 pairs, eight depth maps)
     ref, src, rc, sc = cv_inputs(torch, 2, H, W, 0, main_batch)
     coefs = kcv.pack_coefs(rc, sc)
     idepths = pcv.idepth_hypotheses(3.0, P, ref.device)
-    cv_ms = device_ms(torch, lambda: kcv.cost_volume_kernel(ref, src, coefs, idepths, torch.bfloat16))
+    cv_ms = device_ms(lambda: kcv.cost_volume_kernel(ref, src, coefs, idepths, torch.bfloat16))
     cv_plain_ms = device_ms(
-        torch, lambda: pcv.cost_volume_from_cameras(ref, src, rc, sc, 3.0, P).to(torch.bfloat16))
+        lambda: pcv.cost_volume_from_cameras(ref, src, rc, sc, 3.0, P).to(torch.bfloat16))
     cv_bytes = ref.numel() * 4 * 2 + coefs.numel() * 4 + idepths.numel() * 4 + 2 * P * H * W * 2
     cv_bound, cv_by = bound(cv_bytes, 2 * P * H * W * CV_FLOPS)
-    cv32_ms = device_ms(torch, lambda: kcv.cost_volume_kernel(ref, src, coefs, idepths))
+    cv32_ms = device_ms(lambda: kcv.cost_volume_kernel(ref, src, coefs, idepths))
     cv32_bound, cv32_by = bound(cv_bytes + 2 * P * H * W * 2, 2 * P * H * W * CV_FLOPS)
+    r16, s16, rc16, sc16 = cv_inputs(torch, 16, H, W, 0, batch8)
+    c16 = kcv.pack_coefs(rc16, sc16)
+    cv16_ms = device_ms(lambda: kcv.cost_volume_kernel(r16, s16, c16, idepths, torch.bfloat16))
+    cv16_bound, cv16_by = bound(8 * cv_bytes, 16 * P * H * W * CV_FLOPS)
+    print(f"cost_volume bf16 writeback: 2 pairs kernel {cv_ms:.4f} ms, bound "
+          f"{cv_bound * 1e3:.2f} us ({cv_by}), ratio {cv_ms / cv_bound:.2f}; 16 pairs kernel "
+          f"{cv16_ms:.4f} ms, bound {cv16_bound * 1e3:.2f} us ({cv16_by}), ratio "
+          f"{cv16_ms / cv16_bound:.2f}")
 
     rows = {}
     for B in (1, 8):
         depth, kinv = normals_inputs(torch, B, H, W, seed=40 + B)
-        ms = device_ms(torch, lambda: kn.depth_to_normal_kernel(depth, kinv, K))
-        plain_ms = device_ms(torch, lambda: pn.depth_to_normal(depth, kinv, K))
+        ms = device_ms(lambda: kn.depth_to_normal_kernel(depth, kinv, K))
+        plain_ms = device_ms(lambda: pn.depth_to_normal(depth, kinv, K))
         nb = depth.numel() * 4 + kinv.numel() * 4 + depth.numel() * 12
         rows[B] = (ms, plain_ms) + bound(nb, depth.numel() * normals_flops(K))
     print(f"cost_volume f32 writeback (2 pairs): kernel {cv32_ms:.4f} ms, bound "
           f"{cv32_bound * 1e3:.2f} us ({cv32_by})")
-    print(f"depth_to_normal B=8 k=9: kernel {rows[8][0]:.4f} ms, plain {rows[8][1]:.4f} ms, "
-          f"bound {rows[8][2] * 1e3:.2f} us ({rows[8][3]})")
+    for B in (1, 8):
+        print(f"depth_to_normal B={B} k=9: kernel {rows[B][0]:.4f} ms, plain {rows[B][1]:.4f} "
+              f"ms, bound {rows[B][2] * 1e3:.2f} us ({rows[B][3]}), ratio "
+              f"{rows[B][0] / rows[B][2]:.2f}")
 
     rates = {}
     for B in (1, 8):
@@ -472,6 +542,7 @@ def main() -> int:
               f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; by class: {shares}")
         for key, ms, count in prof_rows[:8]:
             print(f"  {ms:9.4f} ms {count:4d}x {key[:110]}")
+        check_batch_norm_kernels(prof_rows)
 
     kernels = [
         {"name": "cost_volume", "route": "cuda",

@@ -6,20 +6,28 @@ the bound on an H100 and the design). The plain version is
 ``ops/cost_volume.py``; ``cost_volume`` below takes it for CPU tensors only
 and launches the kernel or raises for CUDA tensors.
 
+The kernel reads the source images from a bordered four-channel copy that
+its own pack launch writes into a scratch buffer: ``bordered_source`` is
+that copy in plain PyTorch, and ``bordered_shape`` its shape.
+
 ``cost_volume_kernel.launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+import torch.nn.functional as F
 
 from cnmnet_tpu_torch.geometry.camera import Camera, plane_sweep_homography
 from cnmnet_tpu_torch.kernels import build
 from cnmnet_tpu_torch.ops import cost_volume as plain
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+BORDER = 2  # zero pixels around the packed source
+INDEX_LIMIT = 2**31  # the kernel indexes in 32 bits
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def pack_coefs(ref_cam: Camera, src_cam: Camera) -> torch.Tensor:
@@ -29,6 +37,29 @@ def pack_coefs(ref_cam: Camera, src_cam: Camera) -> torch.Tensor:
     KRKi, KT = plane_sweep_homography(ref_cam, src_cam)
     B = KRKi.shape[0]
     return torch.cat([KRKi.reshape(B, 9), KT.reshape(B, 3)], 1).float().contiguous()
+
+
+def bordered_shape(B: int, H: int, W: int) -> tuple:
+    """Shape of the kernel's packed source: ``[B, H + 4, W + 4, 4]`` f32."""
+    return (B, H + 2 * BORDER, W + 2 * BORDER, 4)
+
+
+def bordered_source(src_images: torch.Tensor) -> torch.Tensor:
+    """What the kernel's pack launch writes, in plain PyTorch: ``[B, H, W,
+    3]`` -> ``[B, H + 4, W + 4, 4]``, the colour and a zero fourth channel
+    inside a 2-pixel border of zeros."""
+    b = BORDER
+    return F.pad(src_images.float(), (0, 1, b, b, b, b))
+
+
+def check_sizes(B: int, H: int, W: int, P: int) -> None:
+    """Refuse shapes whose volume or packed source (larger than the images)
+    reaches 2^31 elements: the kernel's index arithmetic is 32-bit."""
+    for name, n in (("volume", B * P * H * W),
+                    ("packed source", math.prod(bordered_shape(B, H, W)))):
+        if n >= INDEX_LIMIT:
+            raise ValueError(f"cost volume {B}x{P}x{H}x{W}: its {name} has {n} elements, "
+                             f"at or above the kernel's 32-bit limit of {INDEX_LIMIT}")
 
 
 def cost_volume_kernel(
@@ -58,14 +89,16 @@ def cost_volume_kernel(
             raise ValueError(f"{name} must be contiguous on {ref_images.device}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    check_sizes(B, H, W, P)
     lib = build.load("cost_volume")
     fn = lib.cnm_cost_volume
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    scratch = torch.empty(bordered_shape(B, H, W), dtype=torch.float32, device=ref_images.device)
     out = torch.empty((B, P, H, W), dtype=out_dtype, device=ref_images.device)
     with torch.cuda.device(ref_images.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(
-            ref_images.data_ptr(), src_images.data_ptr(), coefs.data_ptr(),
+            ref_images.data_ptr(), src_images.data_ptr(), scratch.data_ptr(), coefs.data_ptr(),
             idepths.data_ptr(), out.data_ptr(), B, H, W, P,
             int(out_dtype == torch.bfloat16), stream,
         )

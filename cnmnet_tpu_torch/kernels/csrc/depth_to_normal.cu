@@ -9,26 +9,44 @@
 // equations by the adjugate (A^T 1 where det < 1e-5 or NaN), and divide by
 // sqrt(|n|^2 + 1e-20) + norm_eps.
 //
-// Layout: one block per (image, tile of kTileH x kTileW output pixels).
-// The block stages the tile's masked points plus a k/2 halo in shared
-// memory (zeros outside the image), takes the vertical k-tap sums of the
-// nine monomials into shared memory, then each thread sums k of those
-// horizontally for its pixel, solves in registers and writes its normal
-// ([B, H, W, 3], NHWC). Any H and W; odd k <= 17.
-//
-// The uncentred f32 solve is ill-conditioned at realistic focal lengths:
-// one ulp in a window sum can turn a normal by degrees. So every step uses
-// the _rn intrinsics, which the compiler never contracts into FMAs, and
-// rounds where the plain version rounds, in its order (taps added first to
-// last, vertical pass then horizontal): the kernel and the plain version
-// give the same normals, not merely equally good ones.
-//
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32) at 192x256, k = 9:
 // 0.2 MB of depth read and 0.6 MB of normals written per image (0.24 us)
-// against about 11 MFLOP (0.16 us), so one image is bound by its bytes and,
-// below a few microseconds, by the launch itself. The design reads depth
-// once and writes normals once: the monomials and their window sums never
-// leave shared memory.
+// against about 11 MFLOP (0.16 us), so the function is bound by its bytes
+// and, below a few microseconds, by the launch itself. The monomials and
+// their window sums never leave shared memory; what costs time is the
+// instructions and the latency of the box sums, which the design cuts:
+//
+// 1. Wide tiles. A block of 256 threads owns kTileW x kTileH = 64 x 8
+//    outputs and stages them with their k/2 halo: 72 x 16 points at k = 9,
+//    2.25 per output (2.5 for 32 x 8 tiles). Taller tiles stage less, but
+//    at B = 1 and 192x256 their 48 blocks leave most of the 132 SMs idle,
+//    and on an H100 64 x 16 tiles were slower at B = 1 and no faster at
+//    B = 8.
+// 2. Asynchronous staging. The raw depth tile goes to shared memory by
+//    cp.async, whose zero fill stands for the plain version's zero padding
+//    outside the image: depth 0 is masked, or backprojects to a zero point.
+// 3. Register-blocked passes, with k a template parameter so that every
+//    loop unrolls and every register index is known at compile time.
+//    Vertical: a thread takes kSeg output rows of one staged column, loads
+//    its kSeg + k - 1 points from shared memory once and keeps them in
+//    registers (each point is read once, not k times), and forms each
+//    monomial product once per point, not once per window. Horizontal: a
+//    thread owns kRun adjacent outputs of a row and reads the kRun + k - 1
+//    vertical sums of a monomial it needs as 8-byte loads (k kRun reads
+//    before). Each window sum still adds its k taps first to last, from 0.
+// 4. Vector stores. The kRun adjacent normals of a thread are 6 contiguous
+//    floats of the [B, H, W, 3] output, written as three 8-byte stores
+//    (where W is even and the run lies in the image): a warp writes one
+//    whole 768-byte row segment with no staging in shared memory.
+//
+// Tensor cores do not apply: a box sum as a TF32 or bf16 product loses the
+// f32 order. The uncentred f32 solve is ill-conditioned at realistic focal
+// lengths: one ulp in a window sum can turn a normal by degrees. So every
+// step uses the _rn intrinsics, which the compiler never contracts into
+// FMAs, and rounds where the plain version rounds, in its order (taps
+// added first to last, vertical pass then horizontal): the kernel and the
+// plain version give the same normals, not merely equally good ones.
+// Any H and W; odd k <= 17.
 
 #include <cuda_runtime.h>
 
@@ -38,95 +56,63 @@ __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b);
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 
-constexpr int kTileW = 32;
+constexpr int kTileW = 64;
 constexpr int kTileH = 8;
-constexpr int kMaxHalo = 8;  // k <= 17
-constexpr int kStageW = kTileW + 2 * kMaxHalo;
-constexpr int kStageH = kTileH + 2 * kMaxHalo;
-constexpr int kThreads = kTileW * kTileH;
+constexpr int kThreads = 256;
+constexpr int kMinBlocks = 4;  // per SM: caps registers at 64 a thread
+constexpr int kSeg = 4;        // output rows per thread in the vertical pass
+constexpr int kRun = 2;        // adjacent outputs per thread in the horizontal pass
+constexpr int kMaxK = 17;
+constexpr int kMaxDevices = 64;
+static_assert(kTileW / kRun * kTileH == kThreads, "one run of outputs per thread");
+static_assert(kTileH % kSeg == 0, "whole vertical segments");
 
-__global__ void __launch_bounds__(kThreads) depth_to_normal_kernel(
-    const float* __restrict__ depth, const float* __restrict__ kinv,
-    float* __restrict__ out, int H, int W, int k, float vmin, float vmax,
-    float det_eps, float norm_eps) {
-  __shared__ float px[kStageH][kStageW];
-  __shared__ float py[kStageH][kStageW];
-  __shared__ float pz[kStageH][kStageW];
-  __shared__ float vsum[9][kTileH][kStageW];
+template <int K>
+struct Tile {
+  static constexpr int R = K / 2;
+  static constexpr int SH = kTileH + 2 * R;       // staged rows
+  static constexpr int SW = kTileW + 2 * R;       // staged columns
+  static constexpr int Pitch = (SW + 3) / 4 * 4;  // floats a row: 16-byte rows
+  static constexpr int Stage = SH * Pitch;
+  static constexpr int Vsum = 9 * kTileH * Pitch;
+  static constexpr int Loads = (kRun + K - 1 + 1) / 2;  // float2 reads a monomial
+  // points X, Y, Z; then the raw depth, which the vertical sums overwrite
+  static constexpr size_t Bytes = (3 * Stage + (Stage > Vsum ? Stage : Vsum)) * sizeof(float);
+  static_assert(kTileW - kRun + 2 * Loads <= Pitch, "horizontal reads stay in the row");
+};
 
-  const int r = k / 2;
-  const int sh = kTileH + 2 * r;
-  const int sw = kTileW + 2 * r;
-  const int b = blockIdx.z;
-  const int row0 = blockIdx.y * kTileH;
-  const int col0 = blockIdx.x * kTileW;
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
-  const float* K = kinv + 9 * b;
-  const float* d_img = depth + static_cast<size_t>(b) * H * W;
+__device__ __forceinline__ void copy4_async(float* dst, const float* src, bool inside) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(inside ? 4 : 0)
+               : "memory");
+}
 
-  // 1. masked points of the tile and its halo
-  for (int i = tid; i < sh * sw; i += kThreads) {
-    const int yy = i / sw;
-    const int xx = i - yy * sw;
-    const int gy = row0 - r + yy;
-    const int gx = col0 - r + xx;
-    float X = 0.0f, Y = 0.0f, Z = 0.0f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const float d = d_img[static_cast<size_t>(gy) * W + gx];
-      if (d > vmin && d < vmax) {
-        const float u = static_cast<float>(gx);
-        const float v = static_cast<float>(gy);
-        X = mul(add(add(mul(K[0], u), mul(K[1], v)), K[2]), d);
-        Y = mul(add(add(mul(K[3], u), mul(K[4], v)), K[5]), d);
-        Z = mul(add(add(mul(K[6], u), mul(K[7], v)), K[8]), d);
-      }
-    }
-    px[yy][xx] = X;
-    py[yy][xx] = Y;
-    pz[yy][xx] = Z;
+__device__ __forceinline__ void wait_async_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Monomial j of a point: xx, xy, xz, yy, yz, zz, x, y, z.
+__device__ __forceinline__ float monomial(int j, float x, float y, float z) {
+  switch (j) {
+    case 0: return mul(x, x);
+    case 1: return mul(x, y);
+    case 2: return mul(x, z);
+    case 3: return mul(y, y);
+    case 4: return mul(y, z);
+    case 5: return mul(z, z);
+    case 6: return x;
+    case 7: return y;
+    default: return z;
   }
-  __syncthreads();
+}
 
-  // 2. vertical k-tap sums of the nine monomials, for every staged column
-  for (int i = tid; i < kTileH * sw; i += kThreads) {
-    const int ty = i / sw;
-    const int xx = i - ty * sw;
-    float m[9];
-#pragma unroll
-    for (int j = 0; j < 9; ++j) m[j] = 0.0f;
-    for (int dy = 0; dy < k; ++dy) {
-      const float x = px[ty + dy][xx];
-      const float y = py[ty + dy][xx];
-      const float z = pz[ty + dy][xx];
-      m[0] = add(m[0], mul(x, x));
-      m[1] = add(m[1], mul(x, y));
-      m[2] = add(m[2], mul(x, z));
-      m[3] = add(m[3], mul(y, y));
-      m[4] = add(m[4], mul(y, z));
-      m[5] = add(m[5], mul(z, z));
-      m[6] = add(m[6], x);
-      m[7] = add(m[7], y);
-      m[8] = add(m[8], z);
-    }
-#pragma unroll
-    for (int j = 0; j < 9; ++j) vsum[j][ty][xx] = m[j];
-  }
-  __syncthreads();
-
-  // 3. horizontal sums, adjugate solve, normalisation
-  const int gy = row0 + threadIdx.y;
-  const int gx = col0 + threadIdx.x;
-  if (gy >= H || gx >= W) return;
-  float s[9];
-#pragma unroll
-  for (int j = 0; j < 9; ++j) {
-    float acc = 0.0f;
-    for (int dx = 0; dx < k; ++dx) acc = add(acc, vsum[j][threadIdx.y][threadIdx.x + dx]);
-    s[j] = acc;
-  }
+// Adjugate solve and normalisation: the plain version's expressions,
+// evaluated left to right.
+__device__ __forceinline__ float3 solve(const float s[9], float det_eps, float norm_eps) {
   const float a = s[0], bb = s[1], c = s[2], d = s[3], e = s[4], f = s[5];
   const float rx = s[6], ry = s[7], rz = s[8];
-  // the plain version's expressions, evaluated left to right
   const float adj00 = sub(mul(d, f), mul(e, e));
   const float adj01 = sub(mul(c, e), mul(bb, f));
   const float adj02 = sub(mul(bb, e), mul(c, d));
@@ -150,24 +136,178 @@ __global__ void __launch_bounds__(kThreads) depth_to_normal_kernel(
   }
   const float sq = add(add(add(mul(nx, nx), mul(ny, ny)), mul(nz, nz)), 1e-20f);
   const float norm = add(__fsqrt_rn(sq), norm_eps);
-  float* o = out + ((static_cast<size_t>(b) * H + gy) * W + gx) * 3;
-  o[0] = __fdiv_rn(nx, norm);
-  o[1] = __fdiv_rn(ny, norm);
-  o[2] = __fdiv_rn(nz, norm);
+  return make_float3(__fdiv_rn(nx, norm), __fdiv_rn(ny, norm), __fdiv_rn(nz, norm));
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) depth_to_normal_kernel(
+    const float* __restrict__ depth, const float* __restrict__ kinv,
+    float* __restrict__ out, int H, int W, float vmin, float vmax, float det_eps,
+    float norm_eps) {
+  using T = Tile<K>;
+  extern __shared__ __align__(16) float smem[];
+  float* px = smem;                  // [SH][Pitch] masked points
+  float* py = px + T::Stage;
+  float* pz = py + T::Stage;
+  float* raw = pz + T::Stage;        // [SH][Pitch] depth, then:
+  float* vsum = raw;                 // [9][kTileH][Pitch] vertical sums
+
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.y * kTileH;
+  const int col0 = blockIdx.x * kTileW;
+  const int tid = threadIdx.x;
+  const float* d_img = depth + static_cast<size_t>(b) * H * W;
+
+  // 1. raw depth of the tile and its halo; zeros outside the image
+  for (int i = tid; i < T::SH * T::SW; i += kThreads) {
+    const int yy = i / T::SW;
+    const int xx = i - yy * T::SW;
+    const int gy = row0 - T::R + yy;
+    const int gx = col0 - T::R + xx;
+    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    copy4_async(raw + yy * T::Pitch + xx,
+                inside ? d_img + static_cast<size_t>(gy) * W + gx : d_img, inside);
+  }
+  wait_async_copies();
+  __syncthreads();
+
+  // 2. masked points
+  const float* Kb = kinv + 9 * b;
+  const float k0 = Kb[0], k1 = Kb[1], k2 = Kb[2], k3 = Kb[3], k4 = Kb[4], k5 = Kb[5];
+  const float k6 = Kb[6], k7 = Kb[7], k8 = Kb[8];
+  for (int i = tid; i < T::SH * T::SW; i += kThreads) {
+    const int yy = i / T::SW;
+    const int xx = i - yy * T::SW;
+    const int at = yy * T::Pitch + xx;
+    const float d = raw[at];
+    float X = 0.0f, Y = 0.0f, Z = 0.0f;
+    if (d > vmin && d < vmax) {
+      const float u = static_cast<float>(col0 - T::R + xx);
+      const float v = static_cast<float>(row0 - T::R + yy);
+      X = mul(add(add(mul(k0, u), mul(k1, v)), k2), d);
+      Y = mul(add(add(mul(k3, u), mul(k4, v)), k5), d);
+      Z = mul(add(add(mul(k6, u), mul(k7, v)), k8), d);
+    }
+    px[at] = X;
+    py[at] = Y;
+    pz[at] = Z;
+  }
+  __syncthreads();
+
+  // 3. vertical k-tap sums: kSeg output rows of one staged column a thread,
+  // one monomial at a time, each product taken once per point
+  constexpr int kPts = kSeg + K - 1;
+  for (int i = tid; i < T::SW * (kTileH / kSeg); i += kThreads) {
+    const int xx = i % T::SW;
+    const int r0 = (i / T::SW) * kSeg;
+    float x[kPts], y[kPts], z[kPts];
+#pragma unroll
+    for (int t = 0; t < kPts; ++t) {
+      const int at = (r0 + t) * T::Pitch + xx;
+      x[t] = px[at];
+      y[t] = py[at];
+      z[t] = pz[at];
+    }
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      float m[kPts];
+#pragma unroll
+      for (int t = 0; t < kPts; ++t) m[t] = monomial(j, x[t], y[t], z[t]);
+#pragma unroll
+      for (int r = 0; r < kSeg; ++r) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int t = r; t < r + K; ++t) acc = add(acc, m[t]);
+        vsum[(j * kTileH + r0 + r) * T::Pitch + xx] = acc;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 4. horizontal sums of kRun adjacent outputs, solve, store
+  const int ty = tid / (kTileW / kRun);
+  const int tx = (tid % (kTileW / kRun)) * kRun;
+  const int gy = row0 + ty;
+  const int gx = col0 + tx;
+  if (gy >= H || gx >= W) return;
+  float s[kRun][9];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    float v[2 * T::Loads];
+    const float2* row = reinterpret_cast<const float2*>(vsum + (j * kTileH + ty) * T::Pitch + tx);
+#pragma unroll
+    for (int l = 0; l < T::Loads; ++l) {
+      const float2 q = row[l];
+      v[2 * l] = q.x;
+      v[2 * l + 1] = q.y;
+    }
+#pragma unroll
+    for (int o = 0; o < kRun; ++o) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int t = 0; t < K; ++t) acc = add(acc, v[o + t]);
+      s[o][j] = acc;
+    }
+  }
+  float3 n[kRun];
+#pragma unroll
+  for (int o = 0; o < kRun; ++o) n[o] = solve(s[o], det_eps, norm_eps);
+  float* o_row = out + ((static_cast<size_t>(b) * H + gy) * W + gx) * 3;
+  if (W % 2 == 0 && gx + kRun <= W) {
+    float2* o2 = reinterpret_cast<float2*>(o_row);
+    o2[0] = make_float2(n[0].x, n[0].y);
+    o2[1] = make_float2(n[0].z, n[1].x);
+    o2[2] = make_float2(n[1].y, n[1].z);
+  } else {
+#pragma unroll
+    for (int o = 0; o < kRun; ++o) {
+      if (gx + o < W) {
+        o_row[3 * o] = n[o].x;
+        o_row[3 * o + 1] = n[o].y;
+        o_row[3 * o + 2] = n[o].z;
+      }
+    }
+  }
+}
+static_assert(kRun == 2, "the vector store above writes two normals");
+
+template <int K>
+int launch(const float* depth, const float* kinv, float* out, int B, int H, int W, float vmin,
+           float vmax, float det_eps, float norm_eps, cudaStream_t stream) {
+  static bool ready[kMaxDevices];
+  int dev = 0;
+  int status = static_cast<int>(cudaGetDevice(&dev));
+  if (status != 0) return status;
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    status = static_cast<int>(cudaFuncSetAttribute(
+        depth_to_normal_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Tile<K>::Bytes)));
+    if (status != 0) return status;
+    ready[dev] = true;
+  }
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  depth_to_normal_kernel<K><<<grid, kThreads, Tile<K>::Bytes, stream>>>(
+      depth, kinv, out, H, W, vmin, vmax, det_eps, norm_eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // depth: [B, H, W] f32; kinv: [B, 3, 3] f32; out: [B, H, W, 3] f32, all
-// contiguous. Returns cudaGetLastError().
+// contiguous. Returns cudaGetLastError() after the launch.
 extern "C" int cnm_depth_to_normal(const float* depth, const float* kinv, float* out,
                                    int B, int H, int W, int k, float vmin, float vmax,
                                    float det_eps, float norm_eps, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || k < 1 || k % 2 == 0 || k / 2 > kMaxHalo)
+  if (B <= 0 || H <= 0 || W <= 0 || k < 1 || k % 2 == 0 || k > kMaxK)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kTileW, kTileH);
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  depth_to_normal_kernel<<<grid, block, 0, stream>>>(depth, kinv, out, H, W, k, vmin, vmax,
-                                                     det_eps, norm_eps);
-  return static_cast<int>(cudaGetLastError());
+  switch (k) {
+#define CNM_CASE(KK) \
+  case KK:           \
+    return launch<KK>(depth, kinv, out, B, H, W, vmin, vmax, det_eps, norm_eps, stream);
+    CNM_CASE(1) CNM_CASE(3) CNM_CASE(5) CNM_CASE(7) CNM_CASE(9)
+    CNM_CASE(11) CNM_CASE(13) CNM_CASE(15) CNM_CASE(17)
+#undef CNM_CASE
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

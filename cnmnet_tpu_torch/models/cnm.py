@@ -11,9 +11,9 @@ Counterpart of ``cnmnet_tpu/models/cnm.py``, covering the same protocols:
 Inputs and outputs keep the JAX package's layouts (images ``[B, V, H, W,
 3]``, cams ``[B, V, 2, 4, 4]``, NHWC outputs); the convolutions run NCHW
 and the outputs are NHWC views of their results. The module computes in
-the dtype of its parameters (``model.to(torch.bfloat16)`` for bf16
-compute); the cost volume is written in that dtype and the disparity heads
-return f32.
+the dtype of its conv weights (``cast_for_compute(model, torch.bfloat16)``
+for bf16 compute); the cost volume is written in that dtype and the
+disparity heads return f32.
 """
 
 from __future__ import annotations
@@ -46,6 +46,25 @@ class CNMOutputs(NamedTuple):
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def cast_for_compute(model: nn.Module, dtype: torch.dtype, device=None) -> nn.Module:
+    """Cast ``model`` in place for compute in ``dtype`` (and move it to
+    ``device``), keeping every norm layer's weight, bias and running
+    statistics in f32, as the JAX package's f32 ``param_dtype`` and
+    ``batch_stats`` do under bf16 compute: the norm then normalises in f32
+    and only its output rounds to ``dtype``. The norm layers are never cast
+    at all: a round trip through bf16 would round their statistics."""
+    model.to(device=device)
+    for m in model.modules():
+        if isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
+            continue
+        for p in m.parameters(recurse=False):
+            p.data = p.data.to(dtype)
+        for name, b in m.named_buffers(recurse=False):
+            if b.is_floating_point():
+                setattr(m, name, b.to(dtype))
+    return model
 
 
 class CNMModel(nn.Module):

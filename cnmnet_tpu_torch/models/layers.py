@@ -27,11 +27,23 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class GroupNormF32(nn.GroupNorm):
+    """GroupNorm that normalises in f32 and returns the input's dtype, as
+    flax's GroupNorm does under bf16 compute (f32 statistics and params).
+    PyTorch's BatchNorm normalises a bf16 input with f32 params in f32 by
+    itself, but its CUDA GroupNorm refuses them ("expected scalar type
+    BFloat16 but found Float"), so the input is cast up here."""
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
 def _norm(norm: str, features: int) -> nn.Module:
     if norm == "batch":
         return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
     if norm == "group":
-        return nn.GroupNorm(32, features, eps=1e-5)
+        return GroupNormF32(32, features, eps=1e-5)
     raise ValueError(f"unknown norm {norm!r}")
 
 

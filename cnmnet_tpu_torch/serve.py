@@ -13,7 +13,9 @@ prob ``[B, H, W]`` (3+ views with the refiner only) and normal ``[B, H, W,
   cast with saturation to ``wire_dtype`` (raw depth can exceed float16's
   range), and cross to the host in one ``.cpu()`` transfer;
 * on CUDA the model computes in bf16 unless ``compute_dtype`` says
-  otherwise; the cost volume and depth->normal run as CUDA kernels.
+  otherwise, with its norm layers' parameters and statistics kept in f32
+  (``models/cnm.py:cast_for_compute``); the cost volume and depth->normal
+  run as CUDA kernels.
 
 Weights come from a torch ``state_dict`` of the port's ``CNMModel``, from a
 flax variables tree of the JAX package (``models/transplant.py``), or from
@@ -40,7 +42,7 @@ import torch
 from cnmnet_tpu_torch.config import Config
 from cnmnet_tpu_torch.geometry.camera import invert_intrinsics
 from cnmnet_tpu_torch.kernels import dispatch
-from cnmnet_tpu_torch.models.cnm import CNMModel
+from cnmnet_tpu_torch.models.cnm import CNMModel, cast_for_compute
 from cnmnet_tpu_torch.models.layers import init_weights
 from cnmnet_tpu_torch.models.transplant import load_flax_variables
 from cnmnet_tpu_torch.ops.images import prepare_images
@@ -120,7 +122,7 @@ class InferenceSession:
             load_flax_variables(model, flax_variables)
         else:
             init_weights(model, torch.Generator().manual_seed(seed))
-        self.model = model.to(device=self.device, dtype=self.compute_dtype).eval()
+        self.model = cast_for_compute(model, self.compute_dtype, self.device).eval()
 
     def _layout(self, views: int):
         """``(name, channels)`` slices packed into the wire's last axis."""

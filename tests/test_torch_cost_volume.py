@@ -163,6 +163,103 @@ def test_pack_coefs_match_plain_terms(rng):
                                   uv[:, :, 3 * 12 + 5].numpy())
 
 
+def _bordered_sweep(ref, src, KRKiUV, KT, idepths):
+    """The kernel's addressing in plain PyTorch: the packed source with its
+    2-pixel zero border, the left/top tap clamped to x0 in [-2, W] and y0 in
+    [-2, H], four unmasked taps, sums in the kernel's order."""
+    B, H, W, _ = ref.shape
+    P = idepths.shape[0]
+    x, y = tcv._sweep_coords(KRKiUV, KT, idepths, H, W)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    x0i = x0.to(torch.int64).clamp(-kcv.BORDER, W)
+    y0i = y0.to(torch.int64).clamp(-kcv.BORDER, H)
+    padded = kcv.bordered_source(src)
+    Wp = padded.shape[2]
+    flat = padded.reshape(B, -1, 4)
+
+    def tap(dx, dy, w):
+        idx = (y0i + dy + kcv.BORDER) * Wp + (x0i + dx + kcv.BORDER)
+        vals = torch.gather(flat, 1, idx.reshape(B, -1, 1).expand(-1, -1, 4))
+        return vals.reshape(B, P, H * W, 4)[..., :3] * w[..., None]
+
+    warped = (tap(0, 0, (1.0 - fx) * (1.0 - fy)) + tap(1, 0, fx * (1.0 - fy))
+              + tap(0, 1, (1.0 - fx) * fy) + tap(1, 1, fx * fy))
+    diff = (warped - ref.reshape(B, 1, H * W, 3)).abs()
+    return (diff[..., 0] + diff[..., 1] + diff[..., 2]).reshape(B, P, H, W)
+
+
+def _edge_terms(rng, B, H, W):
+    """Homography terms whose sample coordinates land at and beyond every
+    edge: x0 in {-3, -2, -1, 0, W-1, W, W+1}, far outside, past the
+    +-100 max(H, W) clip (Z = 0, so X / eps) and on the z-guard (Z = -eps)."""
+    xs = np.asarray([-7.5, -2.5, -2.0, -1.5, -1.0, -0.25, 0.0, 0.5, W - 1.5, W - 1.0,
+                     W - 0.5, W - 1e-3, W, W + 0.5, W + 1.0, W + 1.5, W + 3.25, 1e5, -1e5], np.float32)
+    ys = np.asarray([-5.5, -2.0, -1.5, -1.0, -0.5, 0.0, 1.5, H - 1.5, H - 1.0, H - 0.5,
+                     H, H + 0.5, H + 2.0, 1e5, -1e5], np.float32)
+    x = np.stack([rng.permutation(np.resize(xs, H * W)) for _ in range(B)])
+    y = np.stack([rng.permutation(np.resize(ys, H * W)) for _ in range(B)])
+    z = rng.choice(np.asarray([1.0, 1.0, 1.0, 0.5, 2.0, 0.0, -1e-6], np.float32), (B, H * W))
+    zs = np.where(z == 0, 1.0, z)
+    terms = np.stack([x * zs, y * zs, z], 1).astype(np.float32)  # [B, 3, HW]
+    KT = np.zeros((B, 3, 1), np.float32)
+    KT[:, :2, 0] = rng.choice(np.asarray([0.0, 0.5, -1.0], np.float32), (B, 2))
+    return torch.from_numpy(terms), torch.from_numpy(KT)
+
+
+@pytest.mark.parametrize("shape", [(6, 7), (9, 12)])
+def test_bordered_addressing_equals_plain_at_every_edge(rng, shape):
+    """The kernel's bordered-source addressing gives the plain version's
+    costs exactly, on coordinates at and beyond every edge of the source."""
+    H, W = shape
+    B = 2
+    ref = torch.from_numpy(rng.standard_normal((B, H, W, 3)).astype(np.float32))
+    src = torch.from_numpy(rng.standard_normal((B, H, W, 3)).astype(np.float32))
+    terms, KT = _edge_terms(rng, B, H, W)
+    idepths = torch.tensor([0.0, 0.5, 1.0, 3.0])
+    want = tcv.plane_sweep_cost_volume(ref, src, terms, KT, idepths)
+    got = _bordered_sweep(ref, src, terms, KT, idepths)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    x, _ = tcv._sweep_coords(terms, KT, idepths, H, W)
+    x0 = torch.floor(x)
+    for edge in (-3, -2, -1, 0, W - 1, W, W + 1):
+        assert bool((x0 == edge).any()), edge
+    assert bool((x.abs() == 100.0 * max(H, W)).any())  # the clip was reached
+
+
+def test_bordered_addressing_under_cameras(rng):
+    """The same model under cameras whose motion pushes samples off the
+    source frame on every side."""
+    E2s = [_E(0.3, (0.6, -0.4, 0.2)), _E(-0.25, (-0.7, 0.5, -0.3))]
+    ref, src, c1, c2 = _inputs(rng, 2, 16, 24, E2s)
+    t1, t2 = (TCamera(torch.from_numpy(e), torch.from_numpy(k)) for e, k in (c1, c2))
+    terms, KT = tcv.plane_sweep_terms(t1, t2, 16, 24)
+    idepths = tcv.idepth_hypotheses(3.0, 8)
+    r, s = torch.from_numpy(ref), torch.from_numpy(src)
+    want = tcv.plane_sweep_cost_volume(r, s, terms, KT, idepths)
+    np.testing.assert_array_equal(_bordered_sweep(r, s, terms, KT, idepths).numpy(),
+                                  want.numpy())
+
+
+def test_bordered_source(rng):
+    src = torch.from_numpy(rng.standard_normal((2, 5, 7, 3)).astype(np.float32))
+    packed = kcv.bordered_source(src)
+    assert tuple(packed.shape) == kcv.bordered_shape(2, 5, 7) == (2, 9, 11, 4)
+    np.testing.assert_array_equal(packed[:, 2:-2, 2:-2, :3].numpy(), src.numpy())
+    inner = torch.zeros_like(packed, dtype=torch.bool)
+    inner[:, 2:-2, 2:-2, :3] = True
+    assert bool((packed[~inner] == 0).all())
+
+
+def test_kernel_refuses_sizes_past_32_bit_indexing():
+    kcv.check_sizes(16, 192, 256, 64)  # the bucket-8 volume
+    kcv.check_sizes(1, 480, 640, 64)
+    with pytest.raises(ValueError, match="volume has"):
+        kcv.check_sizes(64, 1024, 1024, 32)
+    with pytest.raises(ValueError, match="packed source has"):
+        kcv.check_sizes(1, 23170, 23170, 1)
+
+
 def test_kernel_module_imports_without_nvcc(monkeypatch, tmp_path):
     """This module imported the kernel modules on a host without nvcc (the
     build waits for the first launch); a build without nvcc raises with the
@@ -173,3 +270,15 @@ def test_kernel_module_imports_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc was not found"):
         build.load("cost_volume")
     assert not (tmp_path / "build").exists()
+
+
+def test_kernel_ablations_apply_to_the_sources():
+    """Every ablation variant of ``kernels/ablate.py`` still finds, once,
+    the text it replaces in the shipped CUDA sources."""
+    from cnmnet_tpu_torch.kernels import ablate
+
+    for source, variants in (("cost_volume", ablate.COST_VOLUME),
+                             ("depth_to_normal", ablate.DEPTH_TO_NORMAL)):
+        for name, subs in variants.items():
+            body = ablate.variant_source(source, name, subs)
+            assert all(new in body for _, new in subs), (source, name)

@@ -8,7 +8,8 @@ with 8 planes, on the same numpy inputs (``SyntheticScenes`` geometry).
 Tolerances: the inverse depths and probabilities agree to 2e-4 absolute
 (values up to 3): the same convolutions summed in another order, through
 about 30 layers. Single layers agree to 1e-4 relative to their largest
-output.
+output. Under bf16 compute one block agrees to 2 bf16 ulps (its test says
+why).
 """
 
 import numpy as np
@@ -24,8 +25,9 @@ from cnmnet_tpu.data.pipeline import collate, normalize_images  # noqa: E402
 from cnmnet_tpu.data.synthetic import SyntheticScenes  # noqa: E402
 from cnmnet_tpu.models import CNMModel as JCNMModel  # noqa: E402
 from cnmnet_tpu.models import layers as jl  # noqa: E402
-from cnmnet_tpu_torch.models import CNMModel, load_flax_variables  # noqa: E402
+from cnmnet_tpu_torch.models import CNMModel, cast_for_compute, load_flax_variables  # noqa: E402
 from cnmnet_tpu_torch.models import layers as tl  # noqa: E402
+from cnmnet_tpu_torch.models.layers import init_weights  # noqa: E402
 from cnmnet_tpu_torch.models import transplant  # noqa: E402
 
 H, W, P = 32, 64, 8
@@ -111,6 +113,53 @@ class TestLayers:
         assert got.dtype == torch.float32
         _rel_close(got, want, 1e-5)
 
+    def test_bf16_conv_norm_act_keeps_f32_statistics(self, rng):
+        """Under bf16 compute the port's block equals flax's (f32 params and
+        batch_stats, bf16 conv) to 2 bf16 ulps of max(|out|, 1/16): the
+        inputs (2 or 3) and weights (0.5 or 1) make the bf16 conv exact on
+        both sides, so only the norm's arithmetic is compared. The running
+        means sit 0.45 bf16 ulp off the bf16 grid and ~28 standard
+        deviations from 0, so statistics rounded to bf16 fall far outside."""
+        cin, feats = 4, 32
+        x = rng.integers(2, 4, (2, 10, 12, cin)).astype(np.float32)
+        jm = jl.ConvNormAct(feats, 3, 1, dtype=jnp.bfloat16)
+        params = _numpy_tree(jm.init(jax.random.PRNGKey(1), x, train=False)["params"])
+        kernel = rng.choice([0.5, 1.0], (3, 3, cin, feats)).astype(np.float32)
+        params["Conv_0"]["kernel"] = kernel
+        params["BatchNorm_0"]["scale"] = rng.uniform(0.5, 1.5, feats).astype(np.float32)
+        params["BatchNorm_0"]["bias"] = (0.1 * rng.standard_normal(feats)).astype(np.float32)
+        w = torch.from_numpy(kernel.transpose(3, 2, 0, 1).copy())
+        conv = torch.nn.functional.conv2d(torch.from_numpy(x).permute(0, 3, 1, 2), w, padding=1)
+        inner = conv[:, :, 1:-1, 1:-1].double()
+        mu, sd = inner.mean((0, 2, 3)).numpy(), inner.std((0, 2, 3)).numpy()
+        ulp = 2.0 ** (np.floor(np.log2(mu)) - 7)
+        mean = (np.round(mu / ulp) * ulp + 0.45 * ulp).astype(np.float32)
+        var = (sd**2).astype(np.float32)
+        assert (mu / sd).min() > 20
+        stats = {"BatchNorm_0": {"mean": mean, "var": var}}
+        want = np.asarray(jm.apply({"params": params, "batch_stats": stats}, x, train=False),
+                          np.float32)
+
+        def port(bf16_statistics):
+            tm = tl.ConvNormAct(cin, feats, 3, 1)
+            tm[0].weight.data = w.clone()
+            tm[1].weight.data = torch.from_numpy(params["BatchNorm_0"]["scale"])
+            tm[1].bias.data = torch.from_numpy(params["BatchNorm_0"]["bias"])
+            tm[1].running_mean.copy_(torch.from_numpy(mean))
+            tm[1].running_var.copy_(torch.from_numpy(var))
+            if bf16_statistics:  # what the port did before: the whole block in bf16
+                tm.to(torch.bfloat16)
+            else:
+                cast_for_compute(tm, torch.bfloat16)
+            with torch.no_grad():
+                out = tm.eval()(torch.from_numpy(x).permute(0, 3, 1, 2).bfloat16())
+            assert out.dtype == torch.bfloat16
+            return out.permute(0, 2, 3, 1).float().numpy()
+
+        ulps = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0**-4))) - 7)
+        assert (np.abs(port(False) - want) / ulps).max() <= 2
+        assert (np.abs(port(True) - want) / ulps).max() > 20
+
     def test_upsampling(self, rng):
         x = rng.standard_normal((2, 5, 7, 3)).astype(np.float32)
         t = torch.from_numpy(x).permute(0, 3, 1, 2)
@@ -159,6 +208,38 @@ def test_cnm_model_matches_flax(rng, case):
             continue
         assert tuple(g.shape) == w.shape == (2, H, W, 1)
         assert np.abs(g.numpy() - np.asarray(w)).max() < TOL, name
+
+
+@pytest.mark.parametrize("norm", ["batch", "group"])
+def test_cast_for_compute_keeps_norms_f32(norm):
+    """Every conv weight and bias becomes bf16; every norm layer's weight,
+    bias and running statistics stay f32 with their values untouched."""
+    model = CNMModel(num_planes=P, norm=norm)
+    init_weights(model, torch.Generator().manual_seed(0))
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_mean.normal_(3.0, 0.1)
+            m.running_var.uniform_(0.5, 1.5)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    assert cast_for_compute(model, torch.bfloat16) is model
+    norms = convs = 0
+    for m in model.modules():
+        if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.GroupNorm)):
+            norms += 1
+            tensors = list(m.parameters(recurse=False)) + list(m.buffers(recurse=False))
+            assert all(t.dtype == torch.float32 for t in tensors if t.is_floating_point())
+        elif isinstance(m, torch.nn.Conv2d):
+            convs += 1
+            assert all(t.dtype == torch.bfloat16 for t in m.parameters())
+    assert norms > 20 and convs > 20
+    for k, v in model.state_dict().items():
+        if v.dtype == torch.float32 or not v.is_floating_point():
+            assert torch.equal(v, before[k]), k
+    images, cams = _batch(3, B=1)
+    with torch.no_grad():  # the bf16 forward runs with f32 norm layers
+        out = model.eval()(torch.from_numpy(images), torch.from_numpy(cams))
+    assert out.iconv.dtype == torch.bfloat16 and out.idepth_refined.dtype == torch.float32
+    assert bool(torch.isfinite(out.idepth_refined).all())
 
 
 def _default_flax_shapes():

@@ -152,3 +152,42 @@ def test_dispatch_on_cpu(rng):
         tdispatch.depth_to_normal(d, k, 5, backend="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         kn.depth_to_normal_kernel(d, k, 5)
+
+
+def _kernel_order_normals(depth, K_inv, k_size, vmin=0.0, vmax=10.0):
+    """The CUDA kernel's staging and sum order in plain PyTorch: the depth
+    tile zero-filled outside the image (as cp.async fills it), every staged
+    depth backprojected at its own pixel (u, v may lie outside the image)
+    and masked, then each window sum taken from 0, taps first to last,
+    vertical pass then horizontal."""
+    B, H, W = depth.shape
+    r = k_size // 2
+    d = torch.nn.functional.pad(depth, (r, r, r, r))
+    v, u = torch.meshgrid(torch.arange(-r, H + r, dtype=torch.float32),
+                          torch.arange(-r, W + r, dtype=torch.float32), indexing="ij")
+    k = K_inv[:, :, :, None, None]
+    rays = k[:, :, 0] * u + k[:, :, 1] * v + k[:, :, 2]  # [B, 3, H + 2r, W + 2r]
+    valid = ((d > vmin) & (d < vmax))[:, None]
+    p = torch.where(valid, rays * d[:, None], torch.zeros(()))
+    x, y, z = p.unbind(1)
+    monos = torch.stack([x * x, x * y, x * z, y * y, y * z, z * z, x, y, z], -1)
+    vert = torch.zeros(B, H, W + 2 * r, 9)
+    for t in range(k_size):
+        vert = vert + monos[:, t:t + H]
+    moments = torch.zeros(B, H, W, 9)
+    for t in range(k_size):
+        moments = moments + vert[:, :, t:t + W]
+    n = tn.solve_normal_equations(moments)
+    nx, ny, nz = n.unbind(-1)
+    return n / (torch.sqrt(nx * nx + ny * ny + nz * nz + 1e-20)[..., None] + 1e-5)
+
+
+@pytest.mark.parametrize("k_size", [1, 5, 9, 17])
+def test_kernel_staging_order_equals_plain(rng, k_size):
+    """Zero-filled staging and sums from 0 give the plain version's normals
+    exactly (up to the sign of zero), at and inside every image edge, with
+    invalid depths (0 and beyond valid_max) inside the image."""
+    depth, K_inv = _inputs(rng, B=2, H=13, W=29, focal=0.9 * 29)
+    d, k = torch.from_numpy(depth), torch.from_numpy(K_inv)
+    want, _ = tn.depth_to_normal(d, k, k_size)
+    np.testing.assert_array_equal(_kernel_order_normals(d, k, k_size).numpy(), want.numpy())
