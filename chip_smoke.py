@@ -30,7 +30,19 @@ source, in parallel), then:
    ``predict`` at buckets 1 and 8;
 5. traces one ``predict`` at buckets 1 and 8 (torch.profiler), prints the
    device's busy time, its idle share and the kernels that take the time,
-   and fails if a batch norm kernel ran with bf16 statistics.
+   and fails if a batch norm kernel ran with bf16 statistics;
+6. trains at full width (3 views, 192x256, 64 planes, k = 9, batch 2, f32,
+   the full CNM recipe with the refiner, Adam): 12 steps of ``train_loop``
+   on synthetic scenes with a ``CheckpointManager``, the launch counters
+   set to 0 just before and read just after (the cost volume once a step,
+   depth->normal three times, each with a gradient), finite losses;
+   restores the last checkpoint bit-equal into a fresh state; 10 steps on
+   one fixed batch, whose loss must fall; the depth->normal Function's
+   forward and depth gradient against plain autograd (max abs 0); one
+   whole step with the kernels against one with the plain versions (loss
+   terms to 1e-5 relative, gradients to 1e-4 relative L2); and the times:
+   the train step, depth->normal with its plain backward, and one traced
+   step by kernel class.
 
 Prints the build seconds, the kernel table as one JSON line, the card's
 name and power limit, and as its last line
@@ -422,6 +434,255 @@ def check_batch_norm_kernels(prof_rows):
     assert not bf16_stats, f"batch norm ran with bf16 statistics: {bf16_stats}"
 
 
+# -- phase 6: the training slice -----------------------------------------------
+
+# backward kernel classes first: first match wins
+TRAIN_KERNEL_CLASSES = (
+    ("dgrad", "convolution dgrad"),
+    ("wgrad", "convolution wgrad"),
+    ("upsample_bilinear2d_backward", "upsampling backward"),
+    ("batch_norm_backward", "batch norm backward"),
+) + KERNEL_CLASSES
+
+
+def train_config(h=H, w=W, planes=P, k=K, steps=12):
+    """The README's quick-start training at full width: 3 views, batch 2,
+    f32, the full CNM recipe with the refiner, Adam lr 1e-4, wd 1e-5, on
+    ``2 * steps`` synthetic scenes (one epoch of ``steps`` batches)."""
+    from cnmnet_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.dataset.image_height, cfg.dataset.image_width = h, w
+    cfg.dataset.batch_size = 2
+    cfg.dataset.synthetic_size = 2 * steps
+    cfg.model.num_planes, cfg.model.k_size = planes, k
+    cfg.train.num_epochs = 1
+    cfg.train.print_interval = 1
+    return cfg
+
+
+def check_normals_gradient(torch, depth, kinv, k):
+    """The kernel's autograd Function against plain autograd on the same
+    depth and cotangent: forward and depth gradient, max abs 0 both."""
+    from cnmnet_tpu_torch.kernels import normals as kn
+    from cnmnet_tpu_torch.ops import normals as pn
+
+    cot = torch.randn(depth.shape + (3,), generator=torch.Generator().manual_seed(0)).to(depth.device)
+    d1, d2 = depth.clone().requires_grad_(), depth.clone().requires_grad_()
+    n1, _ = kn.depth_to_normal(d1, kinv, k)  # the wrapper takes the Function here
+    n2, _ = pn.depth_to_normal(d2, kinv, k)
+    (g1,) = torch.autograd.grad(n1, d1, cot)
+    (g2,) = torch.autograd.grad(n2, d2, cot)
+    fwd = (n1 - n2).abs().max().item()
+    bwd = (g1 - g2).abs().max().item()
+    print(f"check depth_to_normal gradient B={depth.shape[0]} {depth.shape[1]}x{depth.shape[2]} "
+          f"k={k}: max|Function-plain| forward {fwd:.3e}, depth gradient {bwd:.3e} "
+          f"(both must be 0); gradient max |g| {g2.abs().max().item():.3e}")
+    assert fwd == 0 and bwd == 0, (fwd, bwd)
+    return fwd, bwd
+
+
+def profile_train_step(torch, step, state, batch):
+    """One traced train step: wall ms under the profiler, device busy ms (the
+    sum of kernel times), ms by kernel class, and the device span of the
+    plain depth->normal backward (the ``depth_to_normal_backward`` range of
+    ``DepthToNormal.backward``: first to last kernel, gaps included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    averages = prof.key_averages()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in averages
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key != "depth_to_normal_backward"]  # a range, not a kernel
+    rows.sort(key=lambda r: -r[1])
+    classes = {}
+    for key, ms, _ in rows:
+        cls = next((c for frag, c in TRAIN_KERNEL_CLASSES if frag in key), "other")
+        classes[cls] = classes.get(cls, 0.0) + ms
+    nb = [e for e in averages if e.key == "depth_to_normal_backward"]
+    nb_ms = nb[0].device_time_total / 1e3 if nb else None
+    return wall_ms, sum(r[1] for r in rows), classes, rows, nb_ms
+
+
+def train_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, steps=12):
+    """Phase 6: ``train_loop`` at full width with both launch counters, the
+    loss falling on a fixed batch, the kernel's gradient, a whole step with
+    kernels against one with plain versions, the checkpoint round trip, and
+    the times. Returns the launches per train step and the normals timings."""
+    import copy
+    import tempfile
+
+    from cnmnet_tpu_torch.data.synthetic import train_data_fn
+    from cnmnet_tpu_torch.kernels.ablate import device_ms
+    from cnmnet_tpu_torch.kernels import normals as kn
+    from cnmnet_tpu_torch.ops import normals as pn
+    from cnmnet_tpu_torch.train import CheckpointManager, create_train_state, make_train_step
+    from cnmnet_tpu_torch.train import train_loop
+    from cnmnet_tpu_torch.train.loop import batch_to_device, loss_and_grads, loss_weights_from_config
+
+    cfg = train_config(h, w, planes, k, steps)
+    data_fn = train_data_fn(cfg)
+    logged = []
+
+    class Logger:
+        def log_scalars(self, step, scalars, prefix=""):
+            logged.append((step, scalars))
+
+    # 1. launches over `steps` steps of train_loop, and finite losses
+    with tempfile.TemporaryDirectory(prefix="cnm_ckpt_") as ckdir:
+        mgr = CheckpointManager(ckdir, max_to_keep=2, device=device)
+        for c in counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        state = train_loop(cfg, data_fn, logger=Logger(), checkpointer=mgr, max_steps=steps,
+                           device=device)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+        launches = {name: c.launches for name, c in counters.items()}
+        print(f"train_loop: {steps} steps in {loop_s:.2f} s (data made on the host inside the "
+              f"loop); launches {launches}")
+        assert launches == {"cost_volume": steps, "depth_to_normal": 3 * steps}, launches
+        assert state.step == steps and len(logged) == steps - 1  # step `steps` returns first
+        for step, scalars in logged:
+            bad = {k_: v for k_, v in scalars.items() if not np.isfinite(v)}
+            assert not bad, (step, bad)
+        assert all(bool(torch.isfinite(p).all()) for p in state.model.parameters())
+        print(f"train_loop losses by step: {[round(s['loss'], 3) for _, s in logged]}; last "
+              f"logged grad_norm {logged[-1][1]['grad_norm']:.4e}")
+
+        # 5. checkpoint round trip: bit-equal into a fresh state
+        assert mgr.latest_step() == steps
+        restored = mgr.restore(steps, create_train_state(cfg, 99, device))
+        a, b = state.model.state_dict(), restored.model.state_dict()
+        same = all(torch.equal(a[n], b[n]) for n in a)
+        same_m = all(torch.equal(state.opt_state[m][n], restored.opt_state[m][n])
+                     for m in ("mu", "nu") for n in state.opt_state[m])
+        print(f"checkpoint round trip at step {steps}: parameters and statistics equal {same}, "
+              f"Adam moments equal {same_m}, step {restored.step}, count "
+              f"{restored.opt_state['count']}")
+        assert same and same_m and restored.step == steps
+        assert restored.opt_state["count"] == state.opt_state["count"] == steps
+        del restored
+
+    # 2. the loss falls on one fixed batch
+    batch = batch_to_device(next(iter(data_fn())), device)
+    fresh = create_train_state(cfg, 1, device)
+    step = make_train_step(cfg)
+    losses = [float(step(fresh, batch)[1]["loss"]) for _ in range(10)]
+    print(f"fixed batch, 10 steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} ({losses})")
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+    # 3. the kernel's gradient at the train shape
+    from cnmnet_tpu_torch.geometry.camera import invert_intrinsics
+
+    depth = batch["depths"][:, 0].contiguous()  # [2, H, W], invalid pixels 0
+    kinv = invert_intrinsics(batch["cams"][:, 0, 1, :3, :3]).contiguous()
+    nrm_fwd, nrm_bwd = check_normals_gradient(torch, depth, kinv, k)
+
+    # 4. one whole step with the kernels against one with the plain versions
+    a = create_train_state(cfg, 2, device)
+    b = copy.deepcopy(a)
+    cfg_plain = copy.deepcopy(cfg)
+    cfg_plain.model.cv_backend = "torch"
+    b.model.cv_backend = "torch"
+    for c in counters.values():
+        c.launches = 0
+    ga, ma = loss_and_grads(a.model.train(), batch, 0, loss_weights_from_config(cfg))
+    assert all(c.launches > 0 for c in counters.values())
+    for c in counters.values():
+        c.launches = 0
+    gb, mb = loss_and_grads(b.model.train(), batch, 0, loss_weights_from_config(cfg_plain))
+    assert all(c.launches == 0 for c in counters.values())
+    term_err = {n: abs(ma[n].item() - mb[n].item()) / max(abs(mb[n].item()), 1e-30) for n in mb}
+    num = sum(((x - y) ** 2).sum() for x, y in zip(ga, gb)).sqrt().item()
+    den = sum((y ** 2).sum() for y in gb).sqrt().item()
+    worst = max(term_err, key=term_err.get)
+    print(f"whole step, kernels vs plain versions: worst loss-term relative difference "
+          f"{term_err[worst]:.3e} ({worst}; tol 1e-5), gradient relative L2 {num / den:.3e} "
+          f"(tol 1e-4)")
+    assert all(v <= 1e-5 for v in term_err.values()) and num / den <= 1e-4
+    del a, b, ga, gb
+
+    # 6. times: the checked setting (TF32 off), PyTorch's defaults (cuDNN
+    # TF32 on, matmul TF32 off), and TF32 off with cuDNN's autotuner
+    def flags():
+        return (f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+                f"{torch.backends.cudnn.allow_tf32}, cudnn.benchmark "
+                f"{torch.backends.cudnn.benchmark}")
+
+    def time_steps():
+        for _ in range(3):
+            step(fresh, batch)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(10):
+            t = time.perf_counter()
+            step(fresh, batch)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        ms = statistics.median(ts) * 1e3
+        print(f"train step (batch 2, 3 views, {h}x{w}, {planes} planes, k={k}, f32; "
+              f"{flags()}): median {ms:.3f} ms, {2e3 / ms:.2f} samples/s, steps "
+              f"{[round(x * 1e3, 3) for x in ts]} [{smi}]")
+        return ms
+
+    def trace():
+        wall, busy, classes, rows, nb_ms = profile_train_step(torch, step, fresh, batch)
+        if busy == 0:
+            print("profile train step: the profiler recorded no device time (not measured)")
+            return
+        shares = ", ".join(f"{c} {ms_:.4f} ms" for c, ms_ in sorted(classes.items(),
+                                                                     key=lambda x: -x[1]))
+        print(f"profile train step ({flags()}): wall {wall:.3f} ms under the profiler, "
+              f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}; by class: "
+              f"{shares}; the plain depth->normal backward's range (3 calls) spans "
+              f"{'not measured' if nb_ms is None else f'{nb_ms:.4f} ms'} [{smi}]")
+        for key, ms_, count in rows[:10]:
+            print(f"  {ms_:9.4f} ms {count:4d}x {key[:110]}")
+
+    step_ms = time_steps()
+    trace()
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    default_ms = time_steps()
+    trace()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    tuned_ms = time_steps()
+    torch.backends.cudnn.benchmark = False
+    tf32 = flags()
+
+    cot = torch.randn(depth.shape + (3,), device=depth.device)
+    dg = depth.clone().requires_grad_()
+
+    def plain_fwd_bwd():
+        return torch.autograd.grad(pn.depth_to_normal(dg, kinv, k)[0], dg, cot)
+
+    def function_fwd_bwd():
+        return torch.autograd.grad(kn.DepthToNormal.apply(dg, kinv, k), dg, cot)
+
+    nt = {
+        "kernel": device_ms(lambda: kn.depth_to_normal_kernel(depth, kinv, k)),
+        "plain": device_ms(lambda: pn.depth_to_normal(depth, kinv, k)),
+        "plain_fwd_bwd": device_ms(plain_fwd_bwd),
+        "function_fwd_bwd": device_ms(function_fwd_bwd),
+    }
+    nbytes = depth.numel() * 4 + kinv.numel() * 4 + depth.numel() * 12
+    nt["bound"], nt["by"] = bound(nbytes, depth.numel() * normals_flops(k))
+    print(f"depth_to_normal B=2 k={k} ({tf32}): kernel {nt['kernel']:.4f} ms, plain "
+          f"{nt['plain']:.4f} ms, bound {nt['bound'] * 1e3:.2f} us ({nt['by']}); with the "
+          f"depth gradient: Function (kernel + plain backward) {nt['function_fwd_bwd']:.4f} "
+          f"ms, plain {nt['plain_fwd_bwd']:.4f} ms [{smi}]")
+
+    per_step = {n: v // steps for n, v in launches.items()}
+    return per_step, nrm_bwd, nt, (step_ms, default_ms, tuned_ms)
+
+
 def main() -> int:
     import torch
 
@@ -544,21 +805,30 @@ def main() -> int:
             print(f"  {ms:9.4f} ms {count:4d}x {key[:110]}")
         check_batch_norm_kernels(prof_rows)
 
+    # 6. the training slice
+    per_step, nrm_grad_err, nt, step_ms = train_phase(torch, counters, smi)
+
     kernels = [
         {"name": "cost_volume", "route": "cuda",
          "source": "cnmnet_tpu_torch/kernels/csrc/cost_volume.cu",
          "replaces": "cnmnet_tpu/kernels/cost_volume_pallas.py:417",
          "launches": launches["cost_volume"], "max_abs_err": cv_err, "ms": cv_ms,
-         "plain_ms": cv_plain_ms, "bound_ms": cv_bound, "bound_by": cv_by, "library_ms": None},
+         "plain_ms": cv_plain_ms, "bound_ms": cv_bound, "bound_by": cv_by, "library_ms": None,
+         "launches_train_step": per_step["cost_volume"]},
         {"name": "depth_to_normal", "route": "cuda",
          "source": "cnmnet_tpu_torch/kernels/csrc/depth_to_normal.cu",
          "replaces": "cnmnet_tpu/kernels/normals_pallas.py:168",
          "launches": launches["depth_to_normal"], "max_abs_err": nrm_err, "ms": rows[1][0],
          "plain_ms": rows[1][1], "bound_ms": rows[1][2], "bound_by": rows[1][3],
-         "library_ms": None},
+         "library_ms": None, "launches_train_step": per_step["depth_to_normal"],
+         "train_shape_ms": nt["kernel"], "train_shape_plain_ms": nt["plain"],
+         "train_shape_bound_ms": nt["bound"], "backward": "plain autograd",
+         "grad_max_abs_err": nrm_grad_err},
     ]
     print(f"build_s {build_s:.2f}; predict ms/frame b1 {rates[1][0]:.3f} b8 {rates[8][0]:.3f}; "
-          f"frames/s b1 {rates[1][1]:.2f} b8 {rates[8][1]:.2f}")
+          f"frames/s b1 {rates[1][1]:.2f} b8 {rates[8][1]:.2f}; train step ms: TF32 off "
+          f"{step_ms[0]:.3f}, PyTorch defaults {step_ms[1]:.3f}, TF32 off + cudnn.benchmark "
+          f"{step_ms[2]:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

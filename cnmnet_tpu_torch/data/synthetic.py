@@ -229,3 +229,23 @@ class SyntheticScenes:
                 elif normalize:
                     batch["images"] = normalize_images(batch["images"])
                 yield batch
+
+
+def train_data_fn(cfg):
+    """The data function ``train.loop.train_loop`` takes for synthetic
+    training, built as the JAX package's ``cli.py train --synthetic`` builds
+    it: ``dataset.synthetic_size`` scenes of the configured size and views,
+    seeded by ``train.seed``; each call yields one epoch of
+    ``dataset.batch_size`` batches on the ``dataset.wire_dtype`` wire."""
+    ds = SyntheticScenes(
+        num_samples=cfg.dataset.synthetic_size,
+        height=cfg.dataset.image_height,
+        width=cfg.dataset.image_width,
+        view_num=cfg.dataset.view_num,
+        seed=cfg.train.seed,
+    )
+
+    def data_iter():
+        return ds.batches(cfg.dataset.batch_size, epochs=1, wire_dtype=cfg.dataset.wire_dtype)
+
+    return data_iter

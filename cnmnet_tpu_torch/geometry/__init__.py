@@ -8,7 +8,7 @@ from cnmnet_tpu_torch.geometry.camera import (
     plane_sweep_terms,
     relative_pose,
 )
-from cnmnet_tpu_torch.geometry.warp import pixel2cam
+from cnmnet_tpu_torch.geometry.warp import bilinear_sample, cam2pixel, inverse_warp, pixel2cam
 
 __all__ = [
     "Camera",
@@ -19,5 +19,8 @@ __all__ = [
     "plane_sweep_homography",
     "plane_sweep_terms",
     "relative_pose",
+    "bilinear_sample",
+    "cam2pixel",
+    "inverse_warp",
     "pixel2cam",
 ]

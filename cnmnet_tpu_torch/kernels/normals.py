@@ -1,4 +1,4 @@
-"""Depth -> normals: the CUDA kernel's wrapper (forward only).
+"""Depth -> normals: the CUDA kernel's wrapper and its gradient.
 
 Replaces ``cnmnet_tpu/kernels/normals_pallas.py:depth_to_normal_pallas``
 with the hand-written kernel in ``csrc/depth_to_normal.cu`` (its header
@@ -7,8 +7,10 @@ states the bound on an H100 and the design). The plain version is
 and launches the kernel or raises for CUDA tensors. The points come from
 the plain ``pixel2cam`` on either device.
 
-The serving path needs no gradient, so a CUDA depth that requires one is
-refused; the training slice adds the ``torch.autograd.Function``.
+Where a gradient is needed, the kernel runs inside ``DepthToNormal``, whose
+backward is autograd through the plain version, recomputed from the saved
+inputs: the JAX kernel's ``custom_vjp`` (``_fwd``/``_bwd``) does the same,
+and neither package has a backward kernel.
 
 ``depth_to_normal_kernel.launches`` counts the kernel's launches.
 """
@@ -41,8 +43,6 @@ def depth_to_normal_kernel(
     Does not synchronise."""
     if not depth.is_cuda:
         raise ValueError("depth_to_normal_kernel takes CUDA tensors")
-    if depth.requires_grad or intrinsics_inv.requires_grad:
-        raise ValueError("the depth->normal kernel has no backward yet")
     if depth.dim() != 3 or depth.dtype != torch.float32 or not depth.is_contiguous():
         raise ValueError(f"depth: want contiguous f32 [B, H, W], got {depth.dtype} {tuple(depth.shape)}")
     B, H, W = depth.shape
@@ -69,12 +69,42 @@ def depth_to_normal_kernel(
 depth_to_normal_kernel.launches = 0
 
 
+class DepthToNormal(torch.autograd.Function):
+    """``depth_to_normal_kernel`` forward; backward = autograd through the
+    plain ``ops/normals.depth_to_normal`` on the saved inputs, for ``depth``
+    and, where it requires one, ``intrinsics_inv``. Types are the caller's:
+    the wrapper below hands it f32."""
+
+    @staticmethod
+    def forward(ctx, depth, intrinsics_inv, k_size):
+        ctx.save_for_backward(depth, intrinsics_inv)
+        ctx.k_size = k_size
+        return depth_to_normal_kernel(depth.detach().contiguous(),
+                                      intrinsics_inv.detach().contiguous(), k_size)
+
+    @staticmethod
+    def backward(ctx, grad_normals):
+        depth, intrinsics_inv = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:2]
+        with torch.profiler.record_function("depth_to_normal_backward"), torch.enable_grad():
+            d = depth.detach().requires_grad_(needs[0])
+            ki = intrinsics_inv.detach().requires_grad_(needs[1])
+            normals, _ = plain.depth_to_normal(d, ki, ctx.k_size)
+            wrt = [t for t, n in zip((d, ki), needs) if n]
+            grads = iter(torch.autograd.grad(normals, wrt, grad_normals))
+        return tuple(next(grads) if n else None for n in needs) + (None,)
+
+
 def depth_to_normal(depth: torch.Tensor, intrinsics_inv: torch.Tensor, k_size: int = 9):
     """(unit normals ``[B, H, W, 3]``, points ``[B, H, W, 3]``): the plain
-    version for CPU tensors, the kernel for CUDA tensors."""
+    version for CPU tensors; for CUDA tensors the kernel, inside
+    ``DepthToNormal`` where a gradient is needed (the cast to f32 is part
+    of the graph, so the gradient returns in the caller's dtype)."""
     if not depth.is_cuda:
         return plain.depth_to_normal(depth, intrinsics_inv, k_size)
-    normals = depth_to_normal_kernel(
-        depth.float().contiguous(), intrinsics_inv.float().contiguous(), k_size
-    )
+    d, ki = depth.float(), intrinsics_inv.float()
+    if torch.is_grad_enabled() and (d.requires_grad or ki.requires_grad):
+        normals = DepthToNormal.apply(d, ki, k_size)
+    else:
+        normals = depth_to_normal_kernel(d.contiguous(), ki.contiguous(), k_size)
     return normals, pixel2cam(depth, intrinsics_inv)

@@ -6,7 +6,8 @@ The blocks are ``nn.Sequential``s laid out as the reference's torch
 ``disp1.0.bias``, ...):
 
 * ``ConvNormAct``: Conv2d (no bias, symmetric ``(k-1)//2`` padding), norm
-  (BatchNorm eps 1e-5, momentum 0.1; or GroupNorm(32, eps 1e-5)), ReLU;
+  (``BatchNorm2d`` below: eps 1e-5, momentum 0.1, flax's biased running
+  variance; or GroupNorm(32, eps 1e-5)), ReLU;
 * ``DownConvBlock``: two of those, the second with stride 2 (indices 0-5);
 * ``UpConvBlock``: bilinear x2 (half-pixel, ``align_corners=False``), then
   a ``ConvNormAct`` (indices 1-3);
@@ -39,9 +40,34 @@ class GroupNormF32(nn.GroupNorm):
                             self.eps).to(x.dtype)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d whose train-mode running variance is updated as flax's
+    ``nn.BatchNorm`` updates it: with the *biased* batch variance
+    ``E[x^2] - E[x]^2`` (clipped at 0, in f32), where ``nn.BatchNorm2d``
+    takes the unbiased ``n / (n - 1)`` variance. The running mean moves as
+    ``(1 - m) ra + m * mean``, the same products flax rounds. Normalisation
+    is ``nn.BatchNorm2d``'s own (batch statistics in train mode, running
+    statistics in eval mode); the parameters, buffers and ``state_dict``
+    keys are unchanged. ``momentum=None`` keeps PyTorch's cumulative
+    average."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            xf = x.detach().float()
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean, 0.0)
+            self.num_batches_tracked.add_(1)
+            m = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
+            self.running_mean.mul_(1.0 - m).add_(mean * m)
+            self.running_var.mul_(1.0 - m).add_(var * m)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 def _norm(norm: str, features: int) -> nn.Module:
     if norm == "batch":
-        return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        return BatchNorm2d(features, eps=1e-5, momentum=0.1)
     if norm == "group":
         return GroupNormF32(32, features, eps=1e-5)
     raise ValueError(f"unknown norm {norm!r}")

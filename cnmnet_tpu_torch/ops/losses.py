@@ -1,0 +1,139 @@
+"""Training losses: masked, NaN-safe (``cnmnet_tpu/ops/losses.py``).
+
+The same terms, masks and reductions as the JAX module, whose docstring
+names the reference lines each one reproduces. Two rules hold throughout,
+for the gradients as much as for the values:
+
+* a masked-out entry may be inf or NaN, so masks select with
+  ``torch.where`` before any arithmetic (``0 * inf`` is NaN, in a sum and
+  in a backward alike), and norms carry an epsilon inside the square root;
+* masked means divide by ``max(count, 1)``, so an empty mask gives 0, except
+  where the reference's per-sample mean is NaN (``surface_normal_loss``),
+  which is reproduced as a constant NaN branch.
+
+``torch.maximum`` against a tensor stands wherever the JAX module takes
+``jnp.maximum`` of a differentiable value: it splits the gradient at a tie
+as ``jnp.maximum`` does (``clamp_min`` would not).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+
+from cnmnet_tpu_torch.geometry.warp import inverse_warp
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, x, 0.0).sum() / torch.clamp_min(mask.to(x.dtype).sum(), 1.0)
+
+
+def valid_pair_mask(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """gt > 0, both finite, pred > 0: the reference's L1 mask."""
+    return (gt > 0.0) & torch.isfinite(gt) & torch.isfinite(pred) & (pred > 0.0)
+
+
+def _log_diff(pred, gt, mask):
+    return torch.abs(torch.log10(torch.where(mask, pred, 1.0))
+                     - torch.log10(torch.where(mask, gt, 1.0)))
+
+
+def masked_l1(pred: torch.Tensor, gt: torch.Tensor, log: bool = False) -> torch.Tensor:
+    """Masked mean absolute error."""
+    mask = valid_pair_mask(pred, gt)
+    diff = _log_diff(pred, gt, mask) if log else torch.abs(pred - gt)
+    return _masked_mean(diff, mask)
+
+
+def multiscale_idepth_loss(preds: List[torch.Tensor], gt: torch.Tensor) -> torch.Tensor:
+    """0.1 x the mean of the unmasked L1 at scales 2-4.
+
+    preds: [disp1, disp2, disp3, disp4], NHWC at (H, H/2, H/4, H/8); gt at
+    full size, taken nearest (``gt[:, ::f, ::f]``).
+    """
+    losses = [torch.mean(torch.abs(preds[i] - gt[:, ::f, ::f]))
+              for i, f in ((1, 2), (2, 4), (3, 8))]
+    return 0.1 * sum(losses) / 3.0
+
+
+def prob_weighted_l1(pred: torch.Tensor, gt: torch.Tensor, prob_map: torch.Tensor,
+                     log: bool = False) -> torch.Tensor:
+    """Mean of ``prob * |diff|`` over valid pixels."""
+    mask = valid_pair_mask(pred, gt)
+    diff = 10.0 * _log_diff(pred, gt, mask) if log else torch.abs(pred - gt)
+    return _masked_mean(prob_map * diff, mask)
+
+
+def prob_supervision_loss(prob_map: torch.Tensor, idepth_refined: torch.Tensor,
+                          gt_idepth: torch.Tensor, prob_weight: float = 20.0):
+    """(loss, prob_map_gt): ``prob_map`` against the pseudo ground truth
+    ``exp(-prob_weight |idepth_refined - gt|)`` on valid pixels."""
+    mask = valid_pair_mask(idepth_refined, gt_idepth)
+    diff = torch.abs(idepth_refined - gt_idepth)
+    prob_gt = torch.exp(-prob_weight * diff) * mask.to(prob_map.dtype)
+    return _masked_mean(torch.abs(prob_map - prob_gt), mask), prob_gt
+
+
+def surface_normal_loss(pred: torch.Tensor, gt: torch.Tensor, valid: torch.Tensor,
+                        probability_map: Optional[torch.Tensor] = None, eps: float = 1e-8):
+    """(loss, mean angle in degrees) of ``1 - cos`` between normal maps.
+
+    Each sample's mean is over its own valid and finite pixels, and the
+    per-sample means are averaged; a sample with no such pixel makes both
+    results NaN (the reference's empty mean), through a constant branch
+    whose gradient is zero.
+
+    Args:
+      pred, gt: ``[B, H, W, 3]``.
+      valid: ``[B, H, W]`` bool.
+      probability_map: optional ``[B, H, W]`` weights.
+    """
+    finite = torch.isfinite(gt.sum(-1)) & torch.isfinite(pred.sum(-1))
+    mask_b = valid & finite
+    mask = mask_b.to(pred.dtype)
+
+    finite_b = finite[..., None]
+    pred = torch.where(finite_b, pred, 0.0)
+    gt = torch.where(finite_b, gt, 0.0)
+
+    dot = (pred * gt).sum(-1)
+    pn = torch.sqrt((pred * pred).sum(-1) + eps * eps)
+    gn = torch.sqrt((gt * gt).sum(-1) + eps * eps)
+    pg = pn * gn
+    cos = dot / torch.maximum(pg, pg.new_tensor(eps))
+
+    count = mask.sum((1, 2))
+    safe_count = torch.clamp_min(count, 1.0)
+    if probability_map is None:
+        per_sample = torch.where(mask_b, 1.0 - cos, 0.0).sum((1, 2)) / safe_count
+    else:
+        w = probability_map * mask
+        ws = w.sum((1, 2))
+        per_sample = (torch.where(mask_b, (1.0 - cos) * w, 0.0).sum((1, 2))
+                      / torch.maximum(ws, ws.new_tensor(eps)))
+    all_nonempty = torch.all(count > 0)
+    nan = torch.full((), math.nan, dtype=pred.dtype, device=pred.device)
+    loss = torch.where(all_nonempty, per_sample.mean(), nan)
+
+    ang = torch.arccos(torch.clamp(cos, -1.0, 1.0))
+    ang_per_sample = torch.where(mask_b, ang, 0.0).sum((1, 2)) / safe_count
+    mean_angle = torch.where(all_nonempty, ang_per_sample.mean(), nan) / math.pi * 180.0
+    return loss, mean_angle
+
+
+def warped_depth_loss(depth_refined: torch.Tensor, gt_depth_src: torch.Tensor,
+                      pose: torch.Tensor, intrinsics: torch.Tensor,
+                      intrinsics_inv: torch.Tensor, max_depth: float = 10.0) -> torch.Tensor:
+    """Cross-view warped-depth consistency: the refined reference depth,
+    moved into the source frame by ``pose`` (ref->src ``[B, 3, 4]``),
+    against the source's GT depth sampled there; L1 over in-range,
+    in-frustum points in front of both cameras."""
+    warped_gt, src_z = inverse_warp(gt_depth_src[..., None], depth_refined, pose,
+                                    intrinsics, intrinsics_inv)
+    warped_gt = warped_gt[..., 0]
+    mask = ((warped_gt > 0.0) & (warped_gt < max_depth) & (src_z > 0.0)
+            & (depth_refined > 0.0) & (depth_refined < max_depth)
+            & torch.isfinite(src_z) & torch.isfinite(warped_gt))
+    return _masked_mean(torch.abs(src_z - warped_gt), mask)

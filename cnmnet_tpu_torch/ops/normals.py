@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from cnmnet_tpu_torch.geometry.warp import pixel2cam
 
 
-def box_filter(x: torch.Tensor, k_size: int) -> torch.Tensor:
+def box_sum(x: torch.Tensor, k_size: int) -> torch.Tensor:
     """Separable k x k box sum with zero padding, ``[B, H, W, C]``."""
     _, H, W, _ = x.shape
     pad = k_size // 2
@@ -35,6 +35,28 @@ def box_filter(x: torch.Tensor, k_size: int) -> torch.Tensor:
     for d in range(1, k_size):
         out = out + yp[:, :, d : d + W]
     return out
+
+
+class _BoxFilter(torch.autograd.Function):
+    """``box_sum`` with the self-adjoint backward of the JAX package's
+    custom VJP: the zero-padded odd box sum is symmetric (``|i - j| <= k//2``)
+    and its two passes commute, so the gradient is the box sum of the
+    incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, x, k_size):
+        ctx.k_size = k_size
+        return box_sum(x, k_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _BoxFilter.apply(g, ctx.k_size), None
+
+
+def box_filter(x: torch.Tensor, k_size: int) -> torch.Tensor:
+    """Separable k x k box sum with zero padding, ``[B, H, W, C]``, whose
+    gradient is the same box sum (``cnmnet_tpu/ops/normals.py:box_filter``)."""
+    return _BoxFilter.apply(x, k_size)
 
 
 def solve_normal_equations(moments: torch.Tensor, det_eps: float = 1e-5) -> torch.Tensor:

@@ -1,0 +1,191 @@
+"""The training step and the epoch driver (``cnmnet_tpu/train/loop.py``).
+
+``make_train_step(cfg)`` gives ``step(state, batch) -> (state, metrics)``:
+a train-mode forward of ``CNMModel`` on ``prepare_images(batch["images"])``
+(BatchNorm normalises with batch statistics and moves its running ones),
+``compute_losses``, the gradients of the loss, and one optimizer update.
+The state is updated in place and returned. ``metrics`` holds the loss
+terms and ``grad_norm``, the global norm of the unclipped gradients, as
+detached scalars on the device.
+
+With ``train.grad_accum = A > 1`` the batch is split into A microbatches of
+consecutive samples; each runs forward and backward in turn (the BatchNorm
+statistics move once per microbatch, chained), the gradients and metrics
+are averaged, and one update follows.
+
+``train_loop`` is the JAX driver without the mesh and the image summaries:
+checkpoints every ``train.ckpt_interval`` steps, at every epoch end and at
+``max_steps``; a watchdog that halts after three consecutive non-finite
+losses (it reads the previous step's loss, which is ready by then); SIGTERM
+and ^C raised as ``KeyboardInterrupt`` once the running step has finished;
+a checkpoint saved on every way out;
+``train.steps_per_epoch``; resume from ``train.resume_dir``. The trainer
+sets no global precision flag (TF32 stays as the caller left it).
+"""
+
+from __future__ import annotations
+
+import signal
+import time
+from typing import Callable, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from cnmnet_tpu_torch.config import Config
+from cnmnet_tpu_torch.ops.images import prepare_images
+from cnmnet_tpu_torch.train.losses import LossWeights, compute_losses
+from cnmnet_tpu_torch.train.state import TrainState, create_train_state, global_norm, make_optimizer
+
+
+def loss_weights_from_config(cfg: Config) -> LossWeights:
+    return LossWeights(
+        use_normal_loss=cfg.train.use_normal_loss,
+        use_normal_refined_by_planes=cfg.train.use_normal_refined_by_planes,
+        curriculum_epochs=cfg.train.curriculum_epochs,
+        prob_weight=cfg.train.prob_weight,
+        include_prob_map_loss=cfg.train.include_prob_map_loss,
+        k_size=cfg.model.k_size,
+        backend=cfg.model.cv_backend,
+    )
+
+
+def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """numpy (or tensor) batch fields -> tensors on ``device``."""
+    return {k: torch.as_tensor(np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v)
+            .to(device) for k, v in batch.items()}
+
+
+def loss_and_grads(model, batch: Dict[str, torch.Tensor], epoch: int, w: LossWeights):
+    """One forward of ``model`` (in the mode it is in) on a batch of tensors:
+    the gradient of the loss for every parameter, in ``model.parameters()``
+    order (zeros where a parameter took no part), and the loss terms."""
+    params = list(model.parameters())
+    out = model(prepare_images(batch["images"]), batch["cams"])
+    loss, metrics = compute_losses(out, batch, epoch, w)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)], metrics
+
+
+def make_train_step(cfg: Config) -> Callable:
+    """Build ``step(state, batch) -> (state, metrics)``; see the module
+    docstring. ``batch`` is a dict of numpy arrays or tensors, moved to the
+    model's device."""
+    w = loss_weights_from_config(cfg)
+    accum = max(1, int(cfg.train.grad_accum))
+    opt = make_optimizer(cfg)
+
+    def step(state: TrainState, batch: Dict):
+        params = state.params()
+        device = next(iter(params.values())).device
+        batch = batch_to_device(batch, device)
+        state.model.train()
+        if accum == 1:
+            grads, metrics = loss_and_grads(state.model, batch, state.epoch, w)
+        else:
+            for k, v in batch.items():
+                if v.shape[0] % accum:
+                    raise ValueError(f"train.grad_accum={accum} requires the batch divisible "
+                                     f"by it; {k!r} has leading dim {v.shape[0]}")
+            m = next(iter(batch.values())).shape[0] // accum
+            grads = metrics = None
+            for i in range(accum):
+                mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+                g, mm = loss_and_grads(state.model, mb, state.epoch, w)
+                grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+                metrics = mm if metrics is None else {k: metrics[k] + mm[k] for k in metrics}
+            inv = 1.0 / accum
+            grads = [g * inv for g in grads]
+            metrics = {k: v * inv for k, v in metrics.items()}
+        updates, state.opt_state = opt.update(dict(zip(params, grads)), state.opt_state, params)
+        opt.apply(params, updates)
+        state.step += 1
+        metrics["grad_norm"] = global_norm(grads)
+        return state, metrics
+
+    return step
+
+
+def train_loop(
+    cfg: Config,
+    data_iter_fn: Callable[[], Iterator[Dict]],
+    logger=None,
+    checkpointer=None,
+    max_steps: Optional[int] = None,
+    device="cuda",
+) -> TrainState:
+    """Epoch driver: initialise (or resume), iterate, log, checkpoint; see
+    the module docstring. ``logger`` is anything with ``log_scalars(step,
+    scalars, prefix=...)``; ``checkpointer`` a ``CheckpointManager`` (or
+    anything with ``save``, ``wait`` and ``restore``)."""
+    state = create_train_state(cfg, cfg.train.seed, device)
+    start_epoch = 0
+    if checkpointer is not None and cfg.train.resume_dir:
+        restored = checkpointer.restore(cfg.train.resume_dir, state)
+        if restored is not None:
+            state = restored
+            start_epoch = state.epoch
+
+    step_fn = make_train_step(cfg)
+    global_step = state.step
+    nan_streak = 0
+    prev_loss = None
+
+    # SIGTERM (the usual preemption signal) and ^C end the run through the
+    # KeyboardInterrupt path. The step updates the state in place, so the
+    # signal only sets a flag and the interrupt is raised at the end of the
+    # step: the checkpoint never holds a half-applied update. Registration
+    # fails off the main thread; then only divergence and max_steps save.
+    stop = []
+    prev_handlers = {}
+
+    def _on_signal(signum, frame):
+        stop.append(signal.Signals(signum).name)
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev_handlers[sig] = signal.signal(sig, _on_signal)
+        except ValueError:
+            pass
+
+    try:
+        for epoch in range(start_epoch, cfg.train.num_epochs):
+            state.epoch = epoch
+            tic = time.monotonic()
+            for it, batch in enumerate(data_iter_fn()):
+                if cfg.train.steps_per_epoch and it >= cfg.train.steps_per_epoch:
+                    break
+                state, metrics = step_fn(state, batch)
+                global_step += 1
+                if prev_loss is not None:
+                    nan_streak = nan_streak + 1 if not np.isfinite(float(prev_loss)) else 0
+                    if nan_streak >= 3:
+                        raise FloatingPointError(
+                            f"loss non-finite for {nan_streak} consecutive steps at step "
+                            f"{global_step}")
+                prev_loss = metrics["loss"]
+                if max_steps and global_step >= max_steps:
+                    if checkpointer is not None:  # idempotent after an interval save
+                        checkpointer.save(state, step=global_step)
+                        checkpointer.wait()
+                    return state
+                if (checkpointer is not None and cfg.train.ckpt_interval
+                        and global_step % cfg.train.ckpt_interval == 0):
+                    checkpointer.save(state, step=global_step)
+                if logger is not None and it % cfg.train.print_interval == 0:
+                    scalars = {k: float(v) for k, v in metrics.items()}
+                    scalars["step_time"] = (time.monotonic() - tic) / (it + 1)
+                    logger.log_scalars(global_step, scalars, prefix=f"epoch {epoch}")
+                if stop:
+                    raise KeyboardInterrupt(stop[0])
+            if checkpointer is not None:
+                checkpointer.save(state, step=global_step)
+    except (KeyboardInterrupt, FloatingPointError):
+        if checkpointer is not None:
+            checkpointer.save(state, step=global_step)
+            checkpointer.wait()
+        raise
+    finally:
+        for sig, handler in prev_handlers.items():
+            signal.signal(sig, handler)
+    return state

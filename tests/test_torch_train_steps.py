@@ -1,0 +1,217 @@
+"""Properties of the port's train step, on the port alone (CPU, 32x64, 8
+planes, k = 5, batch 2): the counterparts of ``tests/test_train.py``'s
+step tests, the frozen refiner, gradient accumulation and the watchdog."""
+
+import copy
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from cnmnet_tpu_torch.config import Config  # noqa: E402
+from cnmnet_tpu_torch.data.pipeline import collate, normalize_images  # noqa: E402
+from cnmnet_tpu_torch.data.synthetic import SyntheticScenes, train_data_fn  # noqa: E402
+from cnmnet_tpu_torch.train import loop as loop_mod  # noqa: E402
+from cnmnet_tpu_torch.train import CheckpointManager, create_train_state  # noqa: E402
+from cnmnet_tpu_torch.train import make_optimizer, make_train_step  # noqa: E402
+from cnmnet_tpu_torch.train.state import global_norm  # noqa: E402
+
+H, W = 32, 64
+
+
+def _cfg(**train):
+    cfg = Config()
+    cfg.model.num_planes = 8
+    cfg.model.k_size = 5
+    cfg.dataset.batch_size = 2
+    for k, v in train.items():
+        setattr(cfg.train, k, v)
+    return cfg
+
+
+def _batch(views=3, seed=123):
+    ds = SyntheticScenes(num_samples=2, height=H, width=W, view_num=views, seed=seed)
+    batch = collate([ds[0], ds[1]])
+    batch["images"] = normalize_images(batch["images"])
+    batch.pop("index")
+    return batch
+
+
+@pytest.fixture(scope="module")
+def batch():
+    return _batch()
+
+
+def test_loss_decreases_and_finite(batch):
+    cfg = _cfg()
+    state = create_train_state(cfg, 0, "cpu")
+    step = make_train_step(cfg)
+    losses = []
+    for _ in range(6):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        assert np.isfinite(losses[-1]) and np.isfinite(float(metrics["grad_norm"]))
+        assert all(m.dim() == 0 and not m.requires_grad for m in metrics.values())
+    assert losses[-1] < losses[0], losses
+    assert state.step == 6 and state.opt_state["count"] == 6
+
+
+def test_wo_normal_recipe_curriculum(batch):
+    cfg = _cfg(use_normal_loss=False, curriculum_epochs=5)
+    s0 = create_train_state(cfg, 0, "cpu")
+    s6 = copy.deepcopy(s0)
+    s6.epoch = 6
+    _, m0 = make_train_step(cfg)(s0, batch)
+    _, m6 = make_train_step(cfg)(s6, batch)
+    assert float(m6["loss"]) > float(m0["loss"])
+    assert "loss_normal_depth" not in m0
+
+
+def test_frozen_refiner_is_bit_identical():
+    """2-view batches skip the refiner: its parameters get no gradient, no
+    decay, and stay bit-identical (the moments of a zero gradient stay 0),
+    while DepthNet trains."""
+    cfg = _cfg()
+    state = create_train_state(cfg, 0, "cpu")
+    assert state.model.refine_net is not None
+    before = copy.deepcopy(state.model.state_dict())
+    step = make_train_step(cfg)
+    batch2 = _batch(views=2)
+    for _ in range(3):
+        state, metrics = step(state, batch2)
+        assert np.isfinite(float(metrics["loss"]))
+    after = state.model.state_dict()
+    refiner = [k for k in after if k.startswith("refine_net.")]
+    assert refiner
+    for k in refiner:
+        assert torch.equal(after[k], before[k]), k
+    assert not torch.equal(after["depth_net.conv1.0.weight"], before["depth_net.conv1.0.weight"])
+
+
+def test_accum_matches_sequential_reference(batch):
+    """grad_accum = 2 is the sequential reference: microbatches of one
+    sample each, BatchNorm statistics chained, gradients and metrics
+    averaged, one update."""
+    cfg = _cfg(grad_accum=2)
+    state = create_train_state(cfg, 0, "cpu")
+    ref = copy.deepcopy(state)
+    state, metrics = make_train_step(cfg)(state, batch)
+
+    w = loop_mod.loss_weights_from_config(cfg)
+    model = ref.model.train()
+    names = [n for n, _ in model.named_parameters()]
+    total, losses = None, []
+    for i in range(2):  # a Python loop over one-sample microbatches
+        mb = loop_mod.batch_to_device({k: v[i:i + 1] for k, v in batch.items()}, "cpu")
+        g, m = loop_mod.loss_and_grads(model, mb, 0, w)
+        total = g if total is None else [a + b for a, b in zip(total, g)]
+        losses.append(float(m["loss"]))
+    grads = [x * 0.5 for x in total]
+    opt = make_optimizer(cfg)
+    params = dict(model.named_parameters())
+    updates, _ = opt.update(dict(zip(names, grads)), ref.opt_state, params)
+    opt.apply(params, updates)
+
+    assert float(metrics["loss"]) == pytest.approx(np.mean(losses), rel=1e-6)
+    assert float(metrics["grad_norm"]) == pytest.approx(float(global_norm(grads)), rel=1e-6)
+    got, want = state.model.state_dict(), model.state_dict()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_accum_requires_divisible_batch(batch):
+    cfg = _cfg(grad_accum=3)
+    with pytest.raises(ValueError, match="grad_accum"):
+        make_train_step(cfg)(create_train_state(cfg, 0, "cpu"), batch)
+
+
+def test_no_valid_depth_drops_normal_terms_with_finite_gradients(batch):
+    """One sample without a valid depth: the normal losses go NaN, the NaN
+    guard drops them from the loss, and every gradient stays finite."""
+    b = {k: v.copy() for k, v in batch.items()}
+    b["depths"][1, 0] = 0.0
+    cfg = _cfg()
+    state = create_train_state(cfg, 0, "cpu")
+    tb = loop_mod.batch_to_device(b, "cpu")
+    grads, metrics = loop_mod.loss_and_grads(state.model.train(), tb, 0,
+                                             loop_mod.loss_weights_from_config(cfg))
+    assert np.isnan(float(metrics["loss_normal_depth"]))
+    assert np.isfinite(float(metrics["loss"]))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def test_watchdog_halts_and_leaves_a_checkpoint(batch, monkeypatch):
+    calls = {"n": 0}
+
+    def fake_make_train_step(cfg):
+        def fake_step(state, b):
+            calls["n"] += 1
+            state.step += 1
+            return state, {"loss": torch.tensor(np.nan if calls["n"] > 2 else 1.0)}
+
+        return fake_step
+
+    monkeypatch.setattr(loop_mod, "make_train_step", fake_make_train_step)
+
+    def data():
+        while True:
+            yield batch
+
+    class Recorder:  # a CNMModel checkpoint is some 500 MB: record the saves
+        saved = []
+
+        def save(self, state, step=None):
+            self.saved.append(step)
+
+        def wait(self):
+            pass
+
+    cfg = _cfg(num_epochs=1, steps_per_epoch=50)
+    rec = Recorder()
+    with pytest.raises(FloatingPointError, match="non-finite"):
+        loop_mod.train_loop(cfg, data, checkpointer=rec, device="cpu")
+    assert calls["n"] == 6  # NaN at steps 3, 4, 5, read one step late
+    assert rec.saved == [6]
+
+
+def test_bf16_training_is_not_ported():
+    cfg = _cfg()
+    cfg.model.compute_dtype = "bfloat16"
+    with pytest.raises(NotImplementedError, match="float32"):
+        create_train_state(cfg, 0, "cpu")
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """Without a card, the default device raises instead of running on the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = _cfg()
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_train_state(cfg, 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        CheckpointManager(str(tmp_path / "c"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        loop_mod.train_loop(cfg, lambda: iter([]))
+
+
+def test_train_loop_on_synthetic_scenes_logs_scalars():
+    """``train_loop`` end to end on the CPU with ``train_data_fn``, as a
+    user runs it: two real steps, logged through ``log_scalars``."""
+    cfg = _cfg(num_epochs=1, print_interval=1)
+    cfg.dataset.image_height, cfg.dataset.image_width = H, W
+    cfg.dataset.synthetic_size = 4
+    logged = []
+
+    class Logger:
+        def log_scalars(self, step, scalars, prefix=""):
+            logged.append((step, prefix, scalars))
+
+    state = loop_mod.train_loop(cfg, train_data_fn(cfg), logger=Logger(), max_steps=2,
+                                device="cpu")
+    assert state.step == 2
+    assert [s for s, _, _ in logged] == [1]  # step 2 ends the run before its log line
+    step, prefix, scalars = logged[0]
+    assert prefix == "epoch 0" and np.isfinite(scalars["loss"]) and "grad_norm" in scalars
