@@ -42,9 +42,30 @@ source, in parallel), then:
    whole step with the kernels against one with the plain versions (loss
    terms to 1e-5 relative, gradients to 1e-4 relative L2); and the times:
    the train step, depth->normal with its plain backward, and one traced
-   step by kernel class.
+   step by kernel class;
+7. evaluates at full width (CNMModel, 64 planes, 192x256, k = 9, f32,
+   seeded weights with BatchNorm statistics from synthetic frames) on a
+   mock 7-Scenes tree written with the port's ``write_png`` (two test
+   sequences of 40 frames at 480x640): the four protocols through
+   ``evaluate_seven_scenes`` and ``make_eval_forward`` at frame batch 1,
+   the 3-view one also at 4, the launch counters set to 0 just before each
+   run and read just after (one cost volume and one depth->normal per
+   flush), the frame census and finite metrics; (a) an oracle of the true
+   inverse depth scores abs_rel < 1e-3 and a1 = 1, (b) every flush's
+   idepth, prob and normal equal the plain versions' on the same inputs
+   (max abs error 0: the cost volume on 1, 2, 4, 6 and 8 pairs in f32,
+   depth->normal on 1 and 4 maps), (c) frame batch 4 gives frame batch
+   1's metrics (1e-4 relative; a1-a3 3e-5 absolute) under cuDNN TF32 on
+   and, on four frames, off, (d) ``cal_metrics`` re-scores the oracle's
+   artifacts (5e-3 relative, 1e-3 absolute); ``evaluate_scannet`` and
+   ``evaluate_scannet_planes`` on 4 normalised synthetic scenes with
+   non-planar pixels (one launch of each kernel per sample, every output
+   equal to the plain versions'); ms per frame under PyTorch's defaults
+   (cuDNN TF32 on) as the median of 30 repeats of one flush per protocol,
+   and one traced 3-view flush at frame batch 1 and 4.
 
-Prints the build seconds, the kernel table as one JSON line, the card's
+Prints the build seconds, the kernel table as one JSON line (with each
+kernel's launches in phases 3, 6 and 7), the card's
 name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Any failed check raises, and the script exits non-zero without that line.
@@ -400,18 +421,19 @@ KERNEL_CLASSES = (
 )
 
 
-def profile_predict(torch, session, images, cams):
-    """One traced ``predict`` (torch.profiler): its host wall ms under the
-    profiler, the device's busy ms (the sum of kernel times; one stream, so
-    kernels do not overlap), ms by kernel class, and ``(name, ms, count)``
-    per kernel."""
+def profile_call(torch, call):
+    """One traced ``call()`` up to a device synchronise (torch.profiler),
+    after one untraced: its host wall ms under the profiler, the device's
+    busy ms (the sum of kernel times; one stream, so kernels do not
+    overlap), ms by kernel class, and ``(name, ms, count)`` per kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    session.predict(images, cams)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        session.predict(images, cams)
+        call()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
@@ -683,6 +705,340 @@ def train_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, st
     return per_step, nrm_bwd, nt, (step_ms, default_ms, tuned_ms)
 
 
+# -- phase 7: the evaluation slice ---------------------------------------------
+
+EVAL_SEQS = [("chess", "seq-03"), ("fire", "seq-04")]
+EVAL_METRICS = ("l1", "abs_rel", "sq_rel", "rmse", "rmse_log", "scale_inv", "a1", "a2", "a3")
+
+
+def frame_depth_m(i: int) -> float:
+    """The mock tree's depth of frame i (constant over the frame), metres."""
+    return 2.0 + 0.025 * i
+
+
+def write_seven_scenes(root, frames, seed):
+    """A 7-Scenes tree of ``EVAL_SEQS`` with the port's ``write_png``:
+    ``frames`` frames each at 480x640, a colour texture that slides two
+    pixels a frame, 16-bit depth in mm (``frame_depth_m``) with a 65535
+    patch, and a camera translating 1 cm a frame along x."""
+    import os
+
+    from cnmnet_tpu_torch.data.imageio import write_png
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[:480, :640 + 2 * frames]
+    tex = np.stack([128 + 90 * np.sin(x / 13.0 + y / 29.0), 128 + 90 * np.cos(x / 23.0 - y / 17.0),
+                    128 + 80 * np.sin((x + y) / 11.0)], -1)
+    tex = np.clip(tex + rng.normal(0, 12, tex.shape), 0, 255).astype(np.uint8)
+    for s, (scene, seq) in enumerate(EVAL_SEQS):
+        seq_dir = os.path.join(root, scene, seq)
+        os.makedirs(seq_dir)
+        for i in range(frames):
+            name = os.path.join(seq_dir, f"frame-{i:06d}")
+            write_png(f"{name}.color.png", np.ascontiguousarray(tex[:, 2 * i + s:2 * i + s + 640]))
+            depth = np.full((480, 640), int(round(frame_depth_m(i) * 1000)), np.uint16)
+            depth[:10, :10] = 65535  # the invalid marker
+            write_png(f"{name}.depth.png", depth)
+            pose = np.eye(4)
+            pose[0, 3] = 0.01 * i
+            np.savetxt(f"{name}.pose.txt", pose, delimiter="\t ")
+
+
+def eval_model(torch, device, root, h, w, planes):
+    """The full-width CNMModel (``Config()`` with ``planes`` planes), seeded
+    He-normal weights, BatchNorm statistics taken from four 3-view frames
+    of the mock tree (frames 12, 15, 18 and 21 of its first sequence,
+    uint8 wire)."""
+    from cnmnet_tpu_torch.config import Config
+    from cnmnet_tpu_torch.data.seven_scenes import SevenScenes
+    from cnmnet_tpu_torch.models.layers import init_weights
+    from cnmnet_tpu_torch.serve import build_model
+
+    cfg = Config()
+    cfg.model.num_planes = planes
+    model = build_model(cfg)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.to(device)
+    ds = SevenScenes(root, h, w, wire_dtype="uint8")
+    paths = ds.frame_paths(*EVAL_SEQS[0])
+    views = [[ds.load_frame(paths[i + o], with_depth=False) for o in (0, 10, -10)]
+             for i in (12, 15, 18, 21)]
+    images = torch.from_numpy(np.stack([[v[0] for v in f] for f in views])).to(device)
+    cams = torch.from_numpy(np.stack([[v[2] for v in f] for f in views])).to(device)
+    calibrate_batch_norm(torch, model, images, cams)
+    return model
+
+
+RATIO_METRICS = ("a1", "a2", "a3")
+
+
+def metrics_close(a, b, rel, abs_=0.0, ratio_abs=None):
+    """Whether every metric of ``a`` is within max(rel |b|, abs_) of ``b``'s
+    (a1-a3 within ``ratio_abs`` when given: they are pixel fractions), and
+    the largest relative difference with its metric."""
+    def tol(m):
+        return ratio_abs if ratio_abs is not None and m in RATIO_METRICS else max(rel * abs(b[m]), abs_)
+
+    ok = all(abs(a[m] - b[m]) <= tol(m) for m in EVAL_METRICS)
+    worst = max(EVAL_METRICS, key=lambda m: abs(a[m] - b[m]) / max(abs(b[m]), 1e-30))
+    return ok, abs(a[worst] - b[worst]) / max(abs(b[worst]), 1e-30), worst
+
+
+class Recorded:
+    """An eval forward that keeps each call's inputs, outputs and host
+    seconds (up to a device synchronise) for the checks after a run."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.calls = torch, fn, []
+
+    def __call__(self, images, cams):
+        t = time.perf_counter()
+        out = self.fn(images, cams)
+        if out[0].is_cuda:
+            self.torch.cuda.synchronize()
+        self.calls.append((images, cams, out, time.perf_counter() - t))
+        return out
+
+
+def check_eval_vs_plain(counters, name, calls, plain_fwd):
+    """Every flush of a kernel run against the plain versions on the same
+    inputs: idepth, prob and normal equal (max abs error 0, as both kernels
+    round where their plain versions do), and no launch by the plain
+    forward."""
+    before = {n: c.launches for n, c in counters.items()}
+    err = dict.fromkeys(("idepth", "prob", "normal"), 0.0)
+    for images, cams, out, _ in calls:
+        for key, a, b in zip(err, out, plain_fwd(images, cams)):
+            assert (a is None) == (b is None), (name, key)
+            if a is not None:
+                err[key] = max(err[key], (a - b).abs().max().item())
+    assert {n: c.launches for n, c in counters.items()} == before, name
+    B, V = calls[0][0].shape[:2]
+    print(f"check eval {name}, kernels vs plain versions: {len(calls)} flushes of "
+          f"{B * (V - 1)} cost-volume pairs (f32) and {B} depth maps; max abs error "
+          f"{ {k: float(f'{v:.3e}') for k, v in err.items()} } (each must be 0)")
+    assert all(v == 0 for v in err.values()), (name, err)
+
+
+def steady_ms(sync, call, reps=30):
+    """Median host ms of ``call()`` up to a device synchronise, over
+    ``reps`` calls after three warm-up calls."""
+    for _ in range(3):
+        call()
+    sync()
+    ts = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        call()
+        sync()
+        ts.append(time.perf_counter() - t)
+    return statistics.median(ts) * 1e3
+
+
+def eval_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, frames=40):
+    """Phase 7: the four 7-Scenes protocols through ``evaluate_seven_scenes``
+    and ``make_eval_forward`` at full width on a mock tree, with both launch
+    counters read around each run and every flush held against the plain
+    versions; the loader oracle and re-scoring of its artifacts; frame
+    batch 4 against 1 under cuDNN TF32 on and off; the ScanNet evals on
+    synthetic scenes; steady seconds per frame and one traced flush.
+    Returns the eval launches per kernel and the times."""
+    import copy
+    import math
+    import tempfile
+
+    from cnmnet_tpu_torch.data.pipeline import normalize_images
+    from cnmnet_tpu_torch.data.synthetic import SyntheticScenes
+    from cnmnet_tpu_torch.evals.cal_metrics import cal_metrics
+    from cnmnet_tpu_torch.evals.scannet_eval import evaluate_scannet, evaluate_scannet_planes
+    from cnmnet_tpu_torch.evals.seven_scenes_eval import (
+        evaluate_seven_scenes,
+        make_eval_forward,
+        protocol_frame_indices,
+    )
+
+    flags = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+             "cudnn.benchmark": torch.backends.cudnn.benchmark}
+    # PyTorch's defaults: what a user's call to the eval gets
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.benchmark = False
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+
+    def flag_text():
+        return (f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+                f"{torch.backends.cudnn.allow_tf32}, cudnn.benchmark "
+                f"{torch.backends.cudnn.benchmark}")
+
+    t_phase = time.perf_counter()
+    launches_eval = {name: 0 for name in counters}
+    results, recs, steady = {}, {}, {}
+
+    def run(name, forward, num_sources, frame_batch=1, seqs=EVAL_SEQS, max_frames=None, **kw):
+        """One counted ``evaluate_seven_scenes`` run. The kernel forward
+        launches each kernel once a flush, and each flush is then held
+        against the plain versions; an oracle launches nothing."""
+        kernels = forward is fwd
+        n = len(protocol_frame_indices(num_sources, frames))
+        census = [min(n, max_frames or n)] * len(seqs)
+        flushes = sum(math.ceil(c / frame_batch) for c in census)
+        rec = Recorded(torch, forward)
+        t0 = time.perf_counter()
+        for c in counters.values():
+            c.launches = 0
+        res = evaluate_seven_scenes(rec, root, num_sources=num_sources, image_height=h,
+                                    image_width=w, seqs=seqs, frame_batch=frame_batch,
+                                    max_frames_per_seq=max_frames, **kw)
+        launches = {n: c.launches for n, c in counters.items()}
+        want = {n: flushes if kernels else 0 for n in counters}
+        print(f"eval {name}: {int(res['frames'])} frames in {flushes} flushes, launches "
+              f"{launches}; abs_rel {res['abs_rel']:.6f} a1 {res['a1']:.6f} rmse "
+              f"{res['rmse']:.6f}; forward {res['seconds_per_frame'] * 1e3:.3f} ms/frame "
+              f"(first flush at these shapes included), run {time.perf_counter() - t0:.2f} s "
+              f"({flag_text()})")
+        assert launches == want, (name, launches, want)
+        assert res["frames"] == sum(census), (name, res["frames"], census)
+        bad = {m: res[m] for m in EVAL_METRICS if not np.isfinite(res[m])}
+        assert not bad, (name, bad)
+        if kernels:
+            for n, v in launches.items():
+                launches_eval[n] += v
+            check_eval_vs_plain(counters, name, rec.calls, plain_fwd)
+        results[name], recs[name] = res, rec
+        return res
+
+    def batch_gap(b1, b4):
+        """max |idepth| between the first four frames at frame batch 1 and
+        the first flush (the same four frames) at frame batch 4."""
+        one = torch.cat([c[2][0] for c in recs[b1].calls[:4]])
+        return (one - recs[b4].calls[0][2][0]).abs().max().item()
+
+    with tempfile.TemporaryDirectory(prefix="cnm_7scenes_") as tmp:
+        root = f"{tmp}/7scenes"
+        t = time.perf_counter()
+        write_seven_scenes(root, frames, seed=21)
+        print(f"mock 7-Scenes tree: {len(EVAL_SEQS)} sequences x {frames} frames at 480x640 "
+              f"written in {time.perf_counter() - t:.2f} s")
+        model = eval_model(torch, device, root, h, w, planes)
+        fwd = make_eval_forward(model, k_size=k, device=device)
+        plain_model = copy.deepcopy(model)
+        plain_model.cv_backend = "torch"
+        plain_fwd = make_eval_forward(plain_model, k_size=k, device=device)
+
+        # (a) the loader: an oracle of the true inverse depth scores perfectly
+        def oracle(images, cams):
+            i = np.rint(-np.asarray(cams)[:, 0, 0, 0, 3] / 0.01)
+            idepth = (1.0 / frame_depth_m(i)).astype(np.float32)
+            t_ = torch.from_numpy(idepth).to(device)[:, None, None, None].expand(-1, h, w, 1)
+            return t_, None, None
+
+        res = run("oracle 3-view", oracle, 2, save_dir=f"{tmp}/artifacts")
+        assert res["abs_rel"] < 1e-3 and res["a1"] == 1.0, res
+        # (d) re-scoring the oracle's artifacts, GT from the artifacts and
+        # from the tree's PNGs (read and compared at 480x640)
+        for gt_root in (None, root):
+            rescored = cal_metrics(f"{tmp}/artifacts", gt_root=gt_root, write_txt=False)
+            ok, _, _ = metrics_close(rescored, res, 5e-3, 1e-3)
+            diffs = {m: float(f"{abs(rescored[m] - res[m]):.3e}") for m in EVAL_METRICS}
+            print(f"check cal_metrics re-scoring of the oracle's artifacts (GT "
+                  f"{'PNG' if gt_root else 'npy'}): {int(rescored['frames'])} frames; absolute "
+                  f"differences from the inline metrics {diffs} (tol rel 5e-3, abs 1e-3; the "
+                  f"artifacts' depth is 1/(idepth + 1e-4))")
+            assert rescored["frames"] == res["frames"] and ok, diffs
+
+        # the four protocols at frame batch 1, the 3-view one also at 4;
+        # (b) every flush of each against the plain versions (in run);
+        # steady time: one flush of each, repeated
+        for S, fb in ((1, 1), (2, 1), (4, 1), (6, 1), (2, 4)):
+            name = f"{S + 1}-view b{fb}"
+            run(name, fwd, S, frame_batch=fb)
+            images, cams = recs[name].calls[-1][:2]
+            steady[name] = steady_ms(sync, lambda: fwd(images, cams)) / fb
+
+        # (c) batching: cuDNN may take another algorithm at another batch,
+        # and under TF32 that moves single pixels across the 1.25^n
+        # thresholds of a1-a3 (pixel fractions, held to 3e-5 absolute). The
+        # same pair with cuDNN TF32 off, on four frames, shows the cause.
+        torch.backends.cudnn.allow_tf32 = False
+        for fb in (1, 4):
+            run(f"3-view b{fb} TF32 off", fwd, 2, frame_batch=fb, seqs=EVAL_SEQS[:1],
+                max_frames=4)
+        torch.backends.cudnn.allow_tf32 = True
+        for tf32, b1, b4 in (("on", "3-view b1", "3-view b4"),
+                             ("off", "3-view b1 TF32 off", "3-view b4 TF32 off")):
+            ok, worst, name = metrics_close(results[b4], results[b1], 1e-4, ratio_abs=3e-5)
+            diffs = {m: float(f"{abs(results[b4][m] - results[b1][m]):.3e}") for m in EVAL_METRICS}
+            print(f"check eval frame_batch 4 vs 1 (3-view, cuDNN TF32 {tf32}, "
+                  f"{int(results[b1]['frames'])} frames): largest relative metric difference "
+                  f"{worst:.3e} ({name}; tol 1e-4 relative, a1-a3 3e-5 absolute); absolute "
+                  f"differences {diffs}; first four frames' idepth max abs difference "
+                  f"{batch_gap(b1, b4):.3e}")
+            assert ok, (tf32, name, worst)
+        off_flush_ms = {fb: [round(c[3] * 1e3, 3) for c in recs[f"3-view b{fb} TF32 off"].calls]
+                        for fb in (1, 4)}
+        print(f"eval 3-view flushes under cuDNN TF32 off, host ms each (the first at each "
+              f"shape chooses algorithms): frame_batch 1 {off_flush_ms[1]}, frame_batch 4 "
+              f"{off_flush_ms[4]} [{smi}]")
+
+    # ScanNet: depth and plane evals on normalised synthetic scenes whose
+    # top rows have no GT depth, so that every label map holds non-planar
+    # pixels (where the JAX package's plane labels and the port's agree)
+    scenes = SyntheticScenes(num_samples=4, height=h, width=w, view_num=3, seed=17)
+
+    class Scenes:
+        def __len__(self):
+            return len(scenes)
+
+        def __getitem__(self, i):
+            s = dict(scenes[i])
+            s["images"] = normalize_images(s["images"])
+            s["depths"] = s["depths"].copy()
+            s["depths"][:, :6] = 0.0
+            return s
+
+    for name, evaluate in (("scannet depth", evaluate_scannet),
+                           ("scannet planes", evaluate_scannet_planes)):
+        rec = Recorded(torch, fwd)
+        for c in counters.values():
+            c.launches = 0
+        res = evaluate(rec, Scenes())
+        launches = {n: c.launches for n, c in counters.items()}
+        print(f"eval {name}: {res}; launches {launches}")
+        assert launches == {n: len(scenes) for n in counters}, launches
+        assert res["frames"] == len(scenes) and all(np.isfinite(v) for v in res.values()), res
+        for n, v in launches.items():
+            launches_eval[n] += v
+        check_eval_vs_plain(counters, name, rec.calls, plain_fwd)
+
+    # where one 3-view flush's time goes
+    traced = {}
+    for fb in (1, 4) if device != "cpu" else ():
+        images, cams = recs[f"3-view b{fb}"].calls[0][:2]
+        wall, busy, classes, rows = profile_call(torch, lambda: fwd(images, cams))
+        if busy == 0:
+            print(f"profile eval flush b{fb}: the profiler recorded no device time "
+                  "(not measured)")
+            continue
+        traced[fb] = (wall, busy)
+        shares = ", ".join(f"{c} {ms:.4f} ms" for c, ms in sorted(classes.items(),
+                                                                  key=lambda x: -x[1]))
+        print(f"profile eval 3-view flush, frame_batch {fb} ({flag_text()}): wall {wall:.3f} "
+              f"ms under the profiler, device busy {busy:.3f} ms, idle share "
+              f"{1 - busy / wall:.3f}; by class: {shares} [{smi}]")
+        for key, ms, count in rows[:8]:
+            print(f"  {ms:9.4f} ms {count:4d}x {key[:110]}")
+
+    print(f"phase 7: {time.perf_counter() - t_phase:.2f} s")
+    print(f"eval ms per frame, forward only ({flag_text()}), median of 30 repeats of one "
+          f"flush: { {n: round(v, 3) for n, v in steady.items()} }; averages over each run: "
+          f"{ {n: round(r['seconds_per_frame'] * 1e3, 3) for n, r in results.items()} } [{smi}]")
+    torch.backends.cuda.matmul.allow_tf32 = flags["cuda.matmul.allow_tf32"]
+    torch.backends.cudnn.allow_tf32 = flags["cudnn.allow_tf32"]
+    torch.backends.cudnn.benchmark = flags["cudnn.benchmark"]
+    return launches_eval, {"steady": steady, "traced": traced}
+
+
 def main() -> int:
     import torch
 
@@ -794,7 +1150,8 @@ def main() -> int:
 
     # 5. where the time goes inside predict
     for B in (1, 8):
-        wall, busy, classes, prof_rows = profile_predict(torch, session, u8[:B], cams[:B])
+        wall, busy, classes, prof_rows = profile_call(
+            torch, lambda: session.predict(u8[:B], cams[:B]))
         if busy == 0:
             print(f"profile bucket {B}: the profiler recorded no device time (not measured)")
             continue
@@ -808,19 +1165,24 @@ def main() -> int:
     # 6. the training slice
     per_step, nrm_grad_err, nt, step_ms = train_phase(torch, counters, smi)
 
+    # 7. the evaluation slice
+    launches_eval, eval_s = eval_phase(torch, counters, smi)
+
     kernels = [
         {"name": "cost_volume", "route": "cuda",
          "source": "cnmnet_tpu_torch/kernels/csrc/cost_volume.cu",
          "replaces": "cnmnet_tpu/kernels/cost_volume_pallas.py:417",
          "launches": launches["cost_volume"], "max_abs_err": cv_err, "ms": cv_ms,
          "plain_ms": cv_plain_ms, "bound_ms": cv_bound, "bound_by": cv_by, "library_ms": None,
-         "launches_train_step": per_step["cost_volume"]},
+         "launches_train_step": per_step["cost_volume"],
+         "launches_eval": launches_eval["cost_volume"]},
         {"name": "depth_to_normal", "route": "cuda",
          "source": "cnmnet_tpu_torch/kernels/csrc/depth_to_normal.cu",
          "replaces": "cnmnet_tpu/kernels/normals_pallas.py:168",
          "launches": launches["depth_to_normal"], "max_abs_err": nrm_err, "ms": rows[1][0],
          "plain_ms": rows[1][1], "bound_ms": rows[1][2], "bound_by": rows[1][3],
          "library_ms": None, "launches_train_step": per_step["depth_to_normal"],
+         "launches_eval": launches_eval["depth_to_normal"],
          "train_shape_ms": nt["kernel"], "train_shape_plain_ms": nt["plain"],
          "train_shape_bound_ms": nt["bound"], "backward": "plain autograd",
          "grad_max_abs_err": nrm_grad_err},
@@ -828,7 +1190,8 @@ def main() -> int:
     print(f"build_s {build_s:.2f}; predict ms/frame b1 {rates[1][0]:.3f} b8 {rates[8][0]:.3f}; "
           f"frames/s b1 {rates[1][1]:.2f} b8 {rates[8][1]:.2f}; train step ms: TF32 off "
           f"{step_ms[0]:.3f}, PyTorch defaults {step_ms[1]:.3f}, TF32 off + cudnn.benchmark "
-          f"{step_ms[2]:.3f}")
+          f"{step_ms[2]:.3f}; eval 3-view ms/frame b1 {eval_s['steady']['3-view b1']:.3f} b4 "
+          f"{eval_s['steady']['3-view b4']:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,6 @@
 """Host-side batch helpers (from ``cnmnet_tpu/data/pipeline.py``), numpy only.
 
-The threaded ``PrefetchLoader`` comes with the training slice.
+The threaded ``PrefetchLoader`` is not ported yet (ROADMAP, slice 4).
 """
 
 from __future__ import annotations
@@ -22,6 +22,13 @@ def quantize_images_u8(images: np.ndarray) -> np.ndarray:
     """[0, 1] float RGB -> the uint8 wire format; the inverse affine runs on
     the device (``ops/images.prepare_images``)."""
     return np.clip(np.rint(images * 255.0), 0, 255).astype(np.uint8)
+
+
+def denormalize_images(images: np.ndarray) -> np.ndarray:
+    """Back to [0, 1] RGB for visualization, from either wire format."""
+    if images.dtype == np.uint8:
+        return images.astype(np.float32) / 255.0
+    return images * IMAGENET_STD + IMAGENET_MEAN
 
 
 def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
