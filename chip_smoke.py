@@ -9,11 +9,11 @@ source, in parallel), then:
    name and power limit) and turns TF32 off for the f32 checks;
 2. holds each kernel against its plain PyTorch version on the card, asking
    for exact agreement (max abs error 0): the cost volume at the serving
-   shapes (2 and 16 pairs, 192x256, 64 planes) in f32 and bf16, at
+   shapes (2, 8 and 16 pairs, 192x256, 64 planes) in f32 and bf16, at
    (30, 100, 6), (40, 130, 9), an odd width (3 pairs, 31, 97, 5) and
    480x640x64, and under coefficients that
    put taps at and beyond every edge of the source and past the coordinate
-   clip; depth->normal at B in {1, 8} x k in {5, 9} at 192x256, at 480x640
+   clip; depth->normal at B in {1, 4, 8} x k in {5, 9} at 192x256, at 480x640
    and at an odd size, also judged against the plain version in f64;
 3. serves the 3-view refined forward at full width (CNMModel, 64 planes,
    192x256, bf16, seeded weights whose BatchNorm statistics are taken from
@@ -62,10 +62,33 @@ source, in parallel), then:
    non-planar pixels (one launch of each kernel per sample, every output
    equal to the plain versions'); ms per frame under PyTorch's defaults
    (cuDNN TF32 on) as the median of 30 repeats of one flush per protocol,
-   and one traced 3-view flush at frame batch 1 and 4.
+   and one traced 3-view flush at frame batch 1 and 4;
+8. serves under load and runs the command line: (a) the serving session
+   of phase 3 behind a ``MicroBatcher`` (max_batch 8, max_wait 5 ms), 16
+   client threads in a closed loop of 8 requests each, with the launch
+   counters around the run (one launch of each kernel per dispatched
+   batch): requests/s, p50, p99 and max latency, the mean coalesced batch;
+   then 16 x 64 requests, whose p99 and max are also given without each
+   client's first request (the round in which all start at once); one
+   client alone against ``predict`` at bucket 1; the chain slope of the
+   forward (``obs/timing``) beside its CUDA-event time; every future's
+   idepth within 1e-4 of ``predict`` on its own request (f32, TF32 off,
+   one bucket); the reference faults the port does not copy (mixed
+   signatures, a cancelled future, a malformed request, ``max_batch`` above
+   the top bucket), each result against ``predict`` on the same chunk;
+   ``predict_async`` with two handles in flight equal to ``predict``; (b)
+   ``cnmnet_tpu_torch.cli.main`` in this process under PyTorch's defaults
+   (cuDNN TF32 on): ``train --synthetic --max-steps 6`` (6 cost volumes, 18
+   depth->normals, scalar records, PNG summaries, a step-6 checkpoint),
+   ``eval`` on a mock 7-Scenes tree (metrics equal to
+   ``evaluate_seven_scenes`` with the restored weights, 1e-6 relative),
+   ``cal-metrics``, ``eval-scannet --synthetic --planes``, ``infer`` over 8
+   frames (equal to ``InferenceSession(checkpoint="latest").predict`` on the
+   same batches) and ``export-tb`` (the scalars of ``events.jsonl``), each
+   with its seconds and launches.
 
 Prints the build seconds, the kernel table as one JSON line (with each
-kernel's launches in phases 3, 6 and 7), the card's
+kernel's launches in phases 3, 6, 7 and 8), the card's
 name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Any failed check raises, and the script exits non-zero without that line.
@@ -401,7 +424,7 @@ def serve_phase(torch, counters):
     # measures on the CPU at 64x96): tolerance 0.25, a twelfth of the range.
     assert rel_l2 <= 0.25 and mean_abs <= 0.25
     del full32, plain32
-    return session, u8, cams, launches
+    return session, weights, u8, cams, launches
 
 
 # kernel name fragment -> class, first match wins
@@ -615,11 +638,11 @@ def train_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, st
     b.model.cv_backend = "torch"
     for c in counters.values():
         c.launches = 0
-    ga, ma = loss_and_grads(a.model.train(), batch, 0, loss_weights_from_config(cfg))
+    ga, ma, _ = loss_and_grads(a.model.train(), batch, 0, loss_weights_from_config(cfg))
     assert all(c.launches > 0 for c in counters.values())
     for c in counters.values():
         c.launches = 0
-    gb, mb = loss_and_grads(b.model.train(), batch, 0, loss_weights_from_config(cfg_plain))
+    gb, mb, _ = loss_and_grads(b.model.train(), batch, 0, loss_weights_from_config(cfg_plain))
     assert all(c.launches == 0 for c in counters.values())
     term_err = {n: abs(ma[n].item() - mb[n].item()) / max(abs(mb[n].item()), 1e-30) for n in mb}
     num = sum(((x - y) ** 2).sum() for x, y in zip(ga, gb)).sqrt().item()
@@ -1039,6 +1062,470 @@ def eval_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, fra
     return launches_eval, {"steady": steady, "traced": traced}
 
 
+# -- phase 8: serving under load and the command line ------------------------
+
+
+def gate(session):
+    """Hold ``session``'s batcher inside its next dispatch: returns
+    ``(entered, release, restore)``; requests submitted between ``entered``
+    and ``release`` are collected as one batch."""
+    import threading
+
+    entered, release = threading.Event(), threading.Event()
+    real = session.predict_async
+
+    def gated(images, cams):
+        if not entered.is_set():
+            entered.set()
+            assert release.wait(120)
+        return real(images, cams)
+
+    session.predict_async = gated
+    return entered, release, lambda: vars(session).pop("predict_async", None)
+
+
+def gated_batch(session, first, rest, cancel=()):
+    """Submit ``first`` alone, hold its dispatch, submit ``rest`` (one batch
+    behind it), cancel the futures at the ``cancel`` indices of ``rest``,
+    release: returns the futures of ``rest`` and the batcher's counts."""
+    from cnmnet_tpu_torch.serve import MicroBatcher
+
+    entered, release, restore = gate(session)
+    mb = MicroBatcher(session, max_batch=8, max_wait_ms=5)
+    try:
+        head = mb.submit(*first)
+        assert entered.wait(120)
+        futs = [mb.submit(im, cm) for im, cm in rest]
+        for i in cancel:
+            assert futs[i].cancel()
+        release.set()
+        head.result(timeout=120)
+        for i, f in enumerate(futs):
+            if i not in cancel and f.exception(timeout=120) is None:
+                f.result()
+    finally:
+        release.set()
+        mb.close()
+        restore()
+    return futs, (mb.dispatched, mb.served)
+
+
+def load_run(session, u8, cams, clients, per_client):
+    """``clients`` threads in a closed loop through a ``MicroBatcher``
+    (max_batch 8, max_wait 5 ms), ``per_client`` requests each (frame
+    ``(client + i) % len(u8)``): wall seconds, ``(i, latency seconds)`` of
+    every request (``i`` its place in its client's loop), and the batcher's
+    dispatched batches and served requests."""
+    import threading
+
+    from cnmnet_tpu_torch.serve import MicroBatcher
+
+    lat, lock, errors = [], threading.Lock(), []
+    mb = MicroBatcher(session, max_batch=8, max_wait_ms=5)
+
+    def client(c):
+        try:
+            for i in range(per_client):
+                j = (c + i) % len(u8)
+                t = time.perf_counter()
+                out = mb.submit(u8[j], cams[j]).result(timeout=300)
+                dt = time.perf_counter() - t
+                assert out["idepth"].shape == u8.shape[2:4]
+                with lock:
+                    lat.append((i, dt))
+        except Exception as e:  # reported below: the run fails
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        wall = time.perf_counter() - t0
+        mb.close()
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    assert len(lat) == clients * per_client
+    return wall, lat, mb.dispatched, mb.served
+
+
+def batcher_phase(torch, counters, smi, session, weights, u8, cams, device="cuda", clients=16,
+                  per_client=8, long_per_client=64):
+    """Phase 8a: the serving session (bf16, buckets 1/4/8) under load
+    through a ``MicroBatcher`` (max_batch 8, max_wait 5 ms) with the launch
+    counters; one client alone against ``predict`` at bucket 1; the chain
+    slope of the forward beside its CUDA-event time; the identity of every
+    future (f32, TF32 off); the reference faults the port does not copy;
+    ``predict_async`` with two handles in flight. Returns the load run's
+    launches per kernel and its numbers."""
+    from cnmnet_tpu_torch.config import Config
+    from cnmnet_tpu_torch.data.pipeline import normalize_images
+    from cnmnet_tpu_torch.obs.timing import forward_slope_seconds
+    from cnmnet_tpu_torch.serve import InferenceSession, MicroBatcher
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    cfg = Config()
+    cfg.model.num_planes = session.cfg.model.num_planes
+    cfg.model.k_size = session.k_size
+    for B in (1, 4, 8):  # every bucket's first call outside the counted run
+        session.predict(u8[:B], cams[:B])
+
+    def loaded(per_client):
+        """A closed-loop run with the launch counters set to 0 just before
+        and read just after; its numbers, and its launches per kernel. The
+        tail is given over all requests and without each client's first
+        (the round in which every client starts at once), with the max."""
+        for c in counters.values():
+            c.launches = 0
+        wall, lat, batches, served = load_run(session, u8, cams, clients, per_client)
+        sync()
+        launches = {n: c.launches for n, c in counters.items()}
+        n = clients * per_client
+        every = np.array([dt for _, dt in lat]) * 1e3
+        later = np.array([dt for i, dt in lat if i > 0]) * 1e3
+        run = {"requests": n, "requests_per_s": n / wall, "p50_ms": float(np.percentile(every, 50)),
+               "p99_ms": float(np.percentile(every, 99)), "max_ms": float(every.max()),
+               "p99_after_first_ms": float(np.percentile(later, 99)),
+               "max_after_first_ms": float(later.max()), "mean_batch": served / batches,
+               "batches": batches}
+        print(f"batcher load: {clients} clients x {per_client} requests in {wall:.3f} s: "
+              f"{run['requests_per_s']:.2f} requests/s, latency p50 {run['p50_ms']:.3f} ms p99 "
+              f"{run['p99_ms']:.3f} ms max {run['max_ms']:.3f} ms; without each client's first "
+              f"request ({len(later)}): p99 {run['p99_after_first_ms']:.3f} ms max "
+              f"{run['max_after_first_ms']:.3f} ms; {batches} batches of mean size "
+              f"{run['mean_batch']:.3f}; launches {launches} [{smi}]")
+        assert served == n and launches == {k: batches for k in counters}, (launches, batches)
+        return run, launches
+
+    # the load: 16 clients x 8 requests, closed loop; then 16 x 64 (1024
+    # requests), so that p99 is not the slowest few requests of the first round
+    load, launches = loaded(per_client)
+    load["long"], _ = loaded(long_per_client)
+
+    # one client alone: the batcher's wait is the price of coalescing
+    solo = []
+    mb = MicroBatcher(session, max_batch=8, max_wait_ms=5)
+    try:
+        for i in range(20):
+            t = time.perf_counter()
+            mb.submit(u8[i % len(u8)], cams[i % len(u8)]).result(timeout=120)
+            solo.append(time.perf_counter() - t)
+    finally:
+        mb.close()
+    direct = []
+    for i in range(20):
+        t = time.perf_counter()
+        session.predict(u8[i % len(u8)][None], cams[i % len(u8)][None])
+        direct.append(time.perf_counter() - t)
+    load["solo_ms"] = statistics.median(solo) * 1e3
+    load["predict_b1_ms"] = statistics.median(direct) * 1e3
+    print(f"one client alone, 20 sequential submits: median {load['solo_ms']:.3f} ms per request "
+          f"(max_wait 5 ms); predict at bucket 1: median {load['predict_b1_ms']:.3f} ms [{smi}]")
+
+    # the chain slope of the session's forward at bucket 1 beside CUDA events
+    if device != "cpu":
+        from cnmnet_tpu_torch.kernels.ablate import device_ms
+
+        layout = session._layout(3)
+        img = torch.from_numpy(u8[:1]).to(device)
+        cam = torch.from_numpy(cams[:1]).to(device)
+
+        def fwd(im, cm):
+            return session._forward(im, cm, layout)
+
+        slope = forward_slope_seconds(fwd, img, cam) * 1e3
+        event = device_ms(lambda: fwd(img, cam), runs=10, reps=5)
+        print(f"forward at bucket 1: chain slope {slope:.3f} ms per call (obs/timing), CUDA "
+              f"events {event:.3f} ms (device time behind a queued sleep) [{smi}]")
+        load["slope_ms"], load["event_ms"] = slope, event
+
+    # identity: f32, TF32 off, one bucket (every batch padded to 4, so the
+    # convolutions run the same algorithms whatever the batch holds); four
+    # distinct frames, each requested twice
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = InferenceSession(cfg, state_dict=weights, compute_dtype="float32", batch_buckets=(4,),
+                           device=device)
+    alone = [f32.predict(u8[i:i + 1], cams[i:i + 1])["idepth"][0] for i in range(4)]
+    mb = MicroBatcher(f32, max_batch=4, max_wait_ms=5)
+    try:
+        order = [2, 0, 3, 1, 1, 3, 0, 2]
+        futs = [mb.submit(u8[i], cams[i]) for i in order]
+        err = max(np.abs(f.result(timeout=300)["idepth"] - alone[i]).max()
+                  for i, f in zip(order, futs))
+        identity_batches = mb.dispatched
+    finally:
+        mb.close()
+    torch.backends.cudnn.allow_tf32 = tf32
+    print(f"check batcher identity (f32, TF32 off, bucket 4): 8 futures over 4 distinct frames "
+          f"in {identity_batches} batches, max |idepth - predict alone| {err:.3e} (tol 1e-4)")
+    assert err <= 1e-4, err
+    del f32
+
+    # the reference faults, each served, on the serving session; each result
+    # against predict on the chunk the batcher formed (the same bucket)
+    def gap(futs, chunks):
+        """max |idepth| between the futures and predict on their chunks."""
+        worst = 0.0
+        for idx, (images, cams_) in chunks:
+            want = session.predict(np.stack(images), np.stack(cams_))["idepth"]
+            worst = max(worst, max(np.abs(futs[i].result()["idepth"] - want[j]).max()
+                                   for j, i in enumerate(idx)))
+        return worst
+
+    fwire = normalize_images(u8.astype(np.float32) / 255.0)
+    rest = [(u8[1, :2], cams[1, :2]), (u8[2], cams[2]), (fwire[3], cams[3]),
+            (u8[4, :2], cams[4, :2])]
+    futs, counts = gated_batch(session, (u8[0], cams[0]), rest)
+    mix = gap(futs, [((0, 3), ([u8[1, :2], u8[4, :2]], [cams[1, :2], cams[4, :2]])),
+                     ((1,), ([u8[2]], [cams[2]])), ((2,), ([fwire[3]], [cams[3]]))])
+    assert counts == (4, 5) and "prob" not in futs[0].result() and mix <= 1e-6, (counts, mix)
+    futs, counts = gated_batch(session, (u8[0], cams[0]),
+                               [(u8[i], cams[i]) for i in range(1, 4)], cancel=(1,))
+    cancel = gap(futs, [((0, 2), ([u8[1], u8[3]], [cams[1], cams[3]]))])
+    assert futs[1].cancelled() and counts == (2, 3) and cancel <= 1e-6, (counts, cancel)
+    futs, counts = gated_batch(session, (u8[0], cams[0]),
+                               [(u8[1], cams[1, :2]), (u8[2], cams[2]), (u8[3, 0], cams[3])])
+    bad = [type(futs[i].exception()).__name__ for i in (0, 2)]
+    malformed = gap(futs, [((1,), ([u8[2]], [cams[2]]))])
+    assert bad == ["ValueError", "ValueError"] and counts == (2, 2) and malformed <= 1e-6
+    small = InferenceSession(cfg, state_dict=weights, batch_buckets=(1, 4), device=device)
+    futs, counts = gated_batch(small, (u8[0], cams[0]), [(u8[i], cams[i]) for i in range(8)])
+    chunks = [small.predict(u8[:4], cams[:4])["idepth"], small.predict(u8[4:], cams[4:])["idepth"]]
+    over = max(np.abs(f.result()["idepth"] - chunks[i // 4][i % 4]).max()
+               for i, f in enumerate(futs))
+    assert counts == (3, 9) and over <= 1e-6, (counts, over)
+    print(f"check batcher reference faults (bf16 serving session): 2- and 3-view and a float "
+          f"wire in one batch {mix:.3e}; a cancelled future beside live ones {cancel:.3e}; "
+          f"malformed requests failed alone ({bad}), their neighbour {malformed:.3e}; max_batch "
+          f"8 over buckets (1, 4) served as chunks of 4, {over:.3e} (max |idepth| against predict "
+          f"on the same chunk, tol 1e-6)")
+    del small
+
+    # predict_async: two handles in flight, fetched against predict (same bucket, same kernels)
+    h1 = session.predict_async(u8[:4], cams[:4])
+    h2 = session.predict_async(u8[4:], cams[4:])
+    got = [session.fetch(h2), session.fetch(h1)]
+    want = [session.predict(u8[4:], cams[4:]), session.predict(u8[:4], cams[:4])]
+    err = max(np.abs(g[k] - v[k]).max() for g, v in zip(got, want) for k in v)
+    print(f"check predict_async: two handles of 4 frames in flight, fetch vs predict max abs "
+          f"error {err:.3e} (must be 0)")
+    assert err == 0, err
+    print(f"phase 8a: {time.perf_counter() - t_phase:.2f} s")
+    return launches, load
+
+
+class Spy:
+    """For the span of a ``with``: ``module.name`` records each result."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.results = module, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self)
+        return self
+
+    def __call__(self, *args, **kwargs):
+        self.results.append(self.real(*args, **kwargs))
+        return self.results[-1]
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def run_cli(torch, counters, smi, argv, device="cuda"):
+    """``cli.main(argv)`` in this process with the launch counters set to 0
+    just before and read just after: (launches, seconds, printed lines)."""
+    import contextlib
+    import io
+
+    from cnmnet_tpu_torch import cli
+
+    out = io.StringIO()
+    for c in counters.values():
+        c.launches = 0
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = {n: c.launches for n, c in counters.items()}
+    lines = out.getvalue().splitlines()
+    print(f"cli {argv[0]}: rc {rc}, {seconds:.2f} s, launches {launches} [{smi}]")
+    for line in lines[-4:]:
+        print(f"  | {line[:160]}")
+    assert rc == 0, (argv, rc)
+    return launches, seconds, lines
+
+
+def cli_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, frames=40, steps=6):
+    """Phase 8b: ``cnmnet_tpu_torch.cli.main`` at full width under PyTorch's
+    defaults: train, eval, cal-metrics, eval-scannet, infer and export-tb,
+    each with the launch counters around it and held to the direct calls.
+    Returns the CLI's launches per kernel and each command's seconds."""
+    import glob
+    import json
+    import os
+    import tempfile
+
+    from cnmnet_tpu_torch.config import Config, apply_overrides
+    from cnmnet_tpu_torch.data.pipeline import quantize_images_u8
+    from cnmnet_tpu_torch.data.synthetic import SyntheticScenes
+    from cnmnet_tpu_torch.evals import scannet_eval, seven_scenes_eval
+    from cnmnet_tpu_torch.models.layers import init_weights
+    from cnmnet_tpu_torch.obs.tb_export import parse_proto, read_records
+    from cnmnet_tpu_torch.serve import InferenceSession, build_model
+    from cnmnet_tpu_torch.train.checkpoint import CheckpointManager
+    from cnmnet_tpu_torch.train.state import TrainState
+
+    flags = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+             "cudnn.benchmark": torch.backends.cudnn.benchmark}
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.benchmark = False
+    print(f"phase 8b flags: TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+          f"{torch.backends.cudnn.allow_tf32}, cudnn.benchmark {torch.backends.cudnn.benchmark}")
+    t_phase = time.perf_counter()
+    size = [f"dataset.image_height={h}", f"dataset.image_width={w}",
+            f"model.num_planes={planes}", f"model.k_size={k}"]
+    total = {n: 0 for n in counters}
+    seconds = {}
+
+    def count(name, launches, want):
+        assert launches == want, (name, launches, want)
+        for n_, v in launches.items():
+            total[n_] += v
+
+    with tempfile.TemporaryDirectory(prefix="cnm_cli_") as tmp:
+        run = [f"train.log_dir={tmp}/logs", f"train.checkpoint_dir={tmp}/ckpt"]
+        cfg = apply_overrides(Config(), size + run)
+
+        # 1. train: the cost volume once a step, depth->normal three times
+        launches, seconds["train"], _ = run_cli(
+            torch, counters, smi, ["train", "--synthetic", "--max-steps", str(steps),
+                                   "--device", device, "dataset.batch_size=2",
+                                   "train.print_interval=1"] + size + run, device)
+        count("train", launches, {"cost_volume": steps, "depth_to_normal": 3 * steps})
+        with open(f"{tmp}/logs/events.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        scalars = [r for r in records if r["type"] == "scalars"]
+        pngs = sorted(glob.glob(f"{tmp}/logs/images/*/*.png"))
+        steps_saved = CheckpointManager(f"{tmp}/ckpt", device=device).all_steps()
+        print(f"  train: {len(scalars)} scalar records (steps {[r['step'] for r in scalars]}; the "
+              f"step that reaches --max-steps returns before its line), {len(pngs)} PNG "
+              f"summaries, checkpoints {steps_saved}; losses "
+              f"{[round(r['loss'], 3) for r in scalars]}")
+        assert [r["step"] for r in scalars] == list(range(1, steps))
+        assert all(np.isfinite(r["loss"]) for r in scalars) and len(pngs) == 6
+        assert steps_saved[-1] == steps
+
+        # 2. eval on the mock 7-Scenes tree against evaluate_seven_scenes
+        root = f"{tmp}/7scenes"
+        write_seven_scenes(root, frames, seed=21)
+        with Spy(seven_scenes_eval, "evaluate_seven_scenes") as spy:
+            launches, seconds["eval"], _ = run_cli(
+                torch, counters, smi, ["eval", "--views", "3", "--checkpoint", "latest",
+                                       "--max-frames-per-seq", "8", "--save-dir",
+                                       f"{tmp}/artifacts", "--device", device,
+                                       f"dataset.root_dir={root}"] + size + run, device)
+        got = spy.results[0]
+        count("eval", launches, {n_: int(got["frames"]) for n_ in counters})
+        model = build_model(cfg)
+        init_weights(model, torch.Generator().manual_seed(0))
+        CheckpointManager(cfg.train.checkpoint_dir, device=device).restore(
+            "latest", TrainState(model), with_optimizer=False)
+        fwd = seven_scenes_eval.make_eval_forward(model, k_size=k, device=device)
+        want = seven_scenes_eval.evaluate_seven_scenes(fwd, root, num_sources=2, image_height=h,
+                                                       image_width=w, max_frames_per_seq=8)
+        rel = max(abs(got[m] - want[m]) / max(abs(want[m]), 1e-30) for m in EVAL_METRICS)
+        print(f"  eval: {int(got['frames'])} frames, abs_rel {got['abs_rel']:.6f}; largest "
+              f"relative metric difference from evaluate_seven_scenes with the restored weights "
+              f"{rel:.3e} (tol 1e-6)")
+        assert got["frames"] == want["frames"] > 0 and rel <= 1e-6
+
+        # 3. cal-metrics on the eval's artifacts
+        launches, seconds["cal-metrics"], lines = run_cli(
+            torch, counters, smi, ["cal-metrics", f"{tmp}/artifacts"], device)
+        count("cal-metrics", launches, {n_: 0 for n_ in counters})
+        assert os.path.isfile(f"{tmp}/artifacts/evaluation_errors.txt")
+        assert lines[-1] == f"wrote {tmp}/artifacts/evaluation_errors.txt"
+
+        # 4. eval-scannet on synthetic scenes, depth and planes
+        with Spy(scannet_eval, "evaluate_scannet") as dspy, \
+                Spy(scannet_eval, "evaluate_scannet_planes") as pspy:
+            launches, seconds["eval-scannet"], _ = run_cli(
+                torch, counters, smi, ["eval-scannet", "--synthetic", "--planes",
+                                       "--max-samples", "4", "--checkpoint", "latest",
+                                       "--device", device] + size + run, device)
+        count("eval-scannet", launches, {n_: 8 for n_ in counters})
+        depth, planes_ = dspy.results[0], pspy.results[0]
+        print(f"  eval-scannet: abs_rel {depth['abs_rel']:.6f} over {int(depth['frames'])} "
+              f"samples; plane_recall_normal_30deg {planes_['plane_recall_normal_30deg']:.6f}")
+        assert depth["frames"] == planes_["frames"] == 4
+        assert all(np.isfinite(v) for r in (depth, planes_) for v in r.values())
+
+        # 5. infer over 8 .npz frames, batch 4, against InferenceSession on the same batches
+        os.makedirs(f"{tmp}/frames")
+        scenes = SyntheticScenes(num_samples=8, height=h, width=w, view_num=3, seed=31)
+        inputs = [scenes[i] for i in range(8)]
+        for i, f in enumerate(inputs):
+            np.savez(f"{tmp}/frames/frame{i}.npz", images=quantize_images_u8(f["images"]),
+                     cams=f["cams"].astype(np.float32))
+        launches, seconds["infer"], _ = run_cli(
+            torch, counters, smi, ["infer", "--inputs", f"{tmp}/frames/*.npz", "--out-dir",
+                                   f"{tmp}/preds", "--batch", "4", "--checkpoint", "latest",
+                                   "--device", device] + size + run, device)
+        count("infer", launches, {n_: 2 for n_ in counters})
+        session = InferenceSession(cfg, checkpoint="latest", batch_buckets=(1, 4), device=device)
+        err = 0.0
+        for lo in (0, 4):
+            images, cams_ = [], []
+            for i in range(lo, lo + 4):
+                with np.load(f"{tmp}/frames/frame{i}.npz") as z:
+                    images.append(z["images"])
+                    cams_.append(z["cams"])
+            out = session.predict(np.stack(images), np.stack(cams_))
+            for i in range(lo, lo + 4):
+                with np.load(f"{tmp}/preds/frame{i}.pred.npz") as z:
+                    assert set(z.files) == set(out)
+                    err = max(err, max(np.abs(z[k_] - out[k_][i - lo]).max() for k_ in out))
+        print(f"  infer: 8 .pred.npz against InferenceSession(checkpoint='latest').predict on the "
+              f"same batches of 4: max abs error {err:.3e} (must be 0)")
+        assert err == 0, err
+        del session, model
+
+        # 6. export-tb: the exported scalars are events.jsonl's
+        launches, seconds["export-tb"], _ = run_cli(
+            torch, counters, smi, ["export-tb", f"{tmp}/logs", "--out", f"{tmp}/tb"],
+            device)
+        count("export-tb", launches, {n_: 0 for n_ in counters})
+        (path,) = glob.glob(f"{tmp}/tb/events.out.tfevents.*")
+        exported = []
+        for rec in read_records(path):
+            event = parse_proto(rec)
+            values = [parse_proto(v) for v in parse_proto(event[5][0])[1]] if 5 in event else []
+            if values and all(2 in v for v in values):
+                exported.append((event[2][0], {v[1][0].decode(): v[2][0] for v in values}))
+        expect = [(r["step"], {k_: float(np.float32(v)) for k_, v in r.items()
+                               if k_ not in ("step", "time", "type")}) for r in scalars]
+        print(f"  export-tb: {len(exported)} scalar events equal to events.jsonl's "
+              f"{exported == expect}")
+        assert exported == expect
+
+    torch.backends.cuda.matmul.allow_tf32 = flags["cuda.matmul.allow_tf32"]
+    torch.backends.cudnn.allow_tf32 = flags["cudnn.allow_tf32"]
+    torch.backends.cudnn.benchmark = flags["cudnn.benchmark"]
+    print(f"phase 8b: {time.perf_counter() - t_phase:.2f} s; seconds per command "
+          f"{ {n_: round(v, 3) for n_, v in seconds.items()} }; launches {total} [{smi}]")
+    return total, seconds
+
+
 def main() -> int:
     import torch
 
@@ -1081,11 +1568,13 @@ def main() -> int:
     check_cost_volume(torch, 40, 130, 9, 2, 2)
     check_cost_volume(torch, 31, 97, 5, 3, 7)
     check_cost_volume(torch, 480, 640, 64, 2, 3)
+    batch4 = synthetic_batch(4, H, W, 3, seed=7)
+    check_cost_volume(torch, H, W, P, 8, 0, batch4)  # bucket 4: 8 pairs
     batch8 = synthetic_batch(8, H, W, 3, seed=6)
     check_cost_volume(torch, H, W, P, 16, 0, batch8)  # bucket 8: 16 pairs
     check_cost_volume_edges(torch, 4)
     nrm_err = None
-    for B in (1, 8):
+    for B in (1, 4, 8):  # the serving buckets' depth maps
         depth, kinv = normals_inputs(torch, B, H, W, seed=20 + B)
         for k in (5, 9):
             e = check_normals(torch, depth, kinv, k)
@@ -1096,7 +1585,7 @@ def main() -> int:
 
     # 3. the serving slice, with the launch counters
     counters = {"cost_volume": kcv.cost_volume_kernel, "depth_to_normal": kn.depth_to_normal_kernel}
-    session, u8, cams, launches = serve_phase(torch, counters)
+    session, weights, u8, cams, launches = serve_phase(torch, counters)
 
     # 4. times at the serving shapes (bucket 1: 2 pairs, one depth map;
     # bucket 8: 16 pairs, eight depth maps)
@@ -1168,6 +1657,10 @@ def main() -> int:
     # 7. the evaluation slice
     launches_eval, eval_s = eval_phase(torch, counters, smi)
 
+    # 8. serving under load and the command line
+    launches_batcher, load = batcher_phase(torch, counters, smi, session, weights, u8, cams)
+    launches_cli, cli_s = cli_phase(torch, counters, smi)
+
     kernels = [
         {"name": "cost_volume", "route": "cuda",
          "source": "cnmnet_tpu_torch/kernels/csrc/cost_volume.cu",
@@ -1175,7 +1668,9 @@ def main() -> int:
          "launches": launches["cost_volume"], "max_abs_err": cv_err, "ms": cv_ms,
          "plain_ms": cv_plain_ms, "bound_ms": cv_bound, "bound_by": cv_by, "library_ms": None,
          "launches_train_step": per_step["cost_volume"],
-         "launches_eval": launches_eval["cost_volume"]},
+         "launches_eval": launches_eval["cost_volume"],
+         "launches_batcher": launches_batcher["cost_volume"],
+         "launches_cli": launches_cli["cost_volume"]},
         {"name": "depth_to_normal", "route": "cuda",
          "source": "cnmnet_tpu_torch/kernels/csrc/depth_to_normal.cu",
          "replaces": "cnmnet_tpu/kernels/normals_pallas.py:168",
@@ -1183,6 +1678,8 @@ def main() -> int:
          "plain_ms": rows[1][1], "bound_ms": rows[1][2], "bound_by": rows[1][3],
          "library_ms": None, "launches_train_step": per_step["depth_to_normal"],
          "launches_eval": launches_eval["depth_to_normal"],
+         "launches_batcher": launches_batcher["depth_to_normal"],
+         "launches_cli": launches_cli["depth_to_normal"],
          "train_shape_ms": nt["kernel"], "train_shape_plain_ms": nt["plain"],
          "train_shape_bound_ms": nt["bound"], "backward": "plain autograd",
          "grad_max_abs_err": nrm_grad_err},
@@ -1191,7 +1688,12 @@ def main() -> int:
           f"frames/s b1 {rates[1][1]:.2f} b8 {rates[8][1]:.2f}; train step ms: TF32 off "
           f"{step_ms[0]:.3f}, PyTorch defaults {step_ms[1]:.3f}, TF32 off + cudnn.benchmark "
           f"{step_ms[2]:.3f}; eval 3-view ms/frame b1 {eval_s['steady']['3-view b1']:.3f} b4 "
-          f"{eval_s['steady']['3-view b4']:.3f}")
+          f"{eval_s['steady']['3-view b4']:.3f}; batcher {load['requests_per_s']:.2f} requests/s, "
+          f"p50 {load['p50_ms']:.3f} ms, p99 {load['p99_ms']:.3f} ms, max {load['max_ms']:.3f} "
+          f"ms, mean batch {load['mean_batch']:.3f}; over {load['long']['requests']} requests "
+          f"{load['long']['requests_per_s']:.2f} requests/s, p99 {load['long']['p99_ms']:.3f} ms "
+          f"({load['long']['p99_after_first_ms']:.3f} ms without the first round); "
+          f"cli seconds { {n: round(v, 3) for n, v in cli_s.items()} }")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

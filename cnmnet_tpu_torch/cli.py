@@ -1,0 +1,347 @@
+"""Command-line entry of the port (``cnmnet_tpu/cli.py``): train, evaluate,
+re-score, infer and export.
+
+    python -m cnmnet_tpu_torch.cli train --synthetic --max-steps 100 dataset.batch_size=2
+    python -m cnmnet_tpu_torch.cli eval --views 3 --checkpoint latest dataset.root_dir=/data/7scenes
+    python -m cnmnet_tpu_torch.cli infer --inputs 'frames/*.npz' --out-dir preds --checkpoint latest
+
+The subcommands, their arguments and their defaults are the JAX package's.
+Dotted overrides set config fields (``dataset.batch_size=2``), typed by the
+field's current value.
+
+The commands that run the model (``train``, ``eval``, ``eval-scannet``,
+``infer``) take one more argument, ``--device`` (default ``cuda``): the
+device the model runs on, the port's way of asking for the CPU where the
+JAX CLI reads ``JAX_PLATFORMS``. Without a card, ``cuda`` raises
+(``serve.resolve_device``) instead of running on the CPU; pass ``--device
+cpu`` for a CPU run. ``cal-metrics`` and ``export-tb`` compute on the host
+and have no ``--device``.
+
+One device is used. ``eval`` runs unsharded, as the JAX CLI does on one
+device; ``--eval-tile`` and a set ``parallel.coordinator_address`` wait for
+the distribution slice (slice 5), and the latter raises. The ``bench``,
+``prep-cameras``, ``prep-planes``, ``prep-list`` and ``report`` commands
+are not here: the first waits for the port's benchmark, the others for the
+offline tools (slice 6).
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import sys
+
+from cnmnet_tpu_torch.config import Config, apply_overrides, load_config, to_dict
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="cnmnet_tpu_torch")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    def add(name, **kw):
+        """A subcommand that runs the model, and so takes ``--device``."""
+        sp = sub.add_parser(name, **kw)
+        sp.add_argument("--device", default="cuda",
+                        help="device of the model: cuda (default) or cpu")
+        return sp
+
+    t = add("train", help="train the CNM pipeline")
+    t.add_argument("--config", default=None)
+    t.add_argument("--synthetic", action="store_true", help="procedural data")
+    t.add_argument("--wo-normal", action="store_true", help="train_wo_normal recipe")
+    t.add_argument("--max-steps", type=int, default=None)
+    t.add_argument("overrides", nargs="*")
+
+    e = add("eval", help="7-Scenes evaluation")
+    e.add_argument("--config", default=None)
+    e.add_argument("--views", type=int, default=3, choices=[2, 3, 5, 7])
+    e.add_argument("--checkpoint", default=None)
+    e.add_argument("--save-dir", default=None)
+    e.add_argument("--max-frames-per-seq", type=int, default=None)
+    e.add_argument("--frame-batch", type=int, default=1,
+                   help="frames per batched forward")
+    e.add_argument("--eval-tile", type=int, default=1,
+                   help="row tiles per frame over several devices (distribution slice; "
+                        "one device runs unsharded)")
+    e.add_argument("overrides", nargs="*")
+
+    cm = sub.add_parser("cal-metrics",
+             help="re-aggregate metrics over a saved eval artifact dir")
+    cm.add_argument("data_dir", help="artifact root: <scene>/<seq>/{pred,gt}_depth")
+    cm.add_argument("--gt-root", default=None,
+                    help="7-Scenes dataset root; GT read from its depth.png "
+                         "instead of the saved gt_depth npy")
+    cm.add_argument("--min-depth", type=float, default=0.3)
+    cm.add_argument("--max-depth", type=float, default=8.0)
+
+    es = add("eval-scannet", help="ScanNet test-set evaluation")
+    es.add_argument("--config", default=None)
+    es.add_argument("--checkpoint", default=None)
+    es.add_argument("--synthetic", action="store_true", help="procedural data")
+    es.add_argument("--planes", action="store_true",
+                    help="also run the per-plane PlaneNet metric suite")
+    es.add_argument("--max-samples", type=int, default=None)
+    es.add_argument("overrides", nargs="*")
+
+    inf = add("infer", help="offline batched inference over .npz frames (serve.InferenceSession)")
+    inf.add_argument("--config", default=None)
+    inf.add_argument("--checkpoint", default=None)
+    inf.add_argument("--inputs", required=True,
+                     help="glob of .npz files with arrays images [V,H,W,3] "
+                          "(uint8 or normalized f32) and cams [V,2,4,4]")
+    inf.add_argument("--out-dir", required=True)
+    inf.add_argument("--batch", type=int, default=8)
+    inf.add_argument("overrides", nargs="*")
+
+    tb = sub.add_parser("export-tb", help="convert a run dir's events.jsonl to TensorBoard format")
+    tb.add_argument("run_dir")
+    tb.add_argument("--out", default=None)
+    return p
+
+
+def _build_config(args) -> Config:
+    cfg = load_config(getattr(args, "config", None))
+    overrides = list(getattr(args, "overrides", []))
+    if overrides:
+        apply_overrides(cfg, overrides)
+    return cfg
+
+
+def _restored_model(cfg: Config, checkpoint):
+    """A ``CNMModel`` with seed-0 weights, then ``checkpoint``'s (a step
+    directory, a manager root or ``"latest"`` under
+    ``train.checkpoint_dir``) when one is given."""
+    import torch
+
+    from cnmnet_tpu_torch.models.layers import init_weights
+    from cnmnet_tpu_torch.serve import build_model, restore_weights
+
+    model = build_model(cfg)
+    init_weights(model, torch.Generator().manual_seed(0))
+    if checkpoint:
+        restore_weights(model, checkpoint, cfg.train.checkpoint_dir)
+    return model
+
+
+def _print_metrics(result) -> None:
+    for k, v in result.items():
+        print(f"{k}: {v:.4f}")
+
+
+def cmd_train(args) -> int:
+    cfg = _build_config(args)
+    if args.wo_normal:
+        cfg.train.use_normal_loss = False
+    if args.synthetic:
+        cfg.dataset.synthetic = True
+    if cfg.parallel.coordinator_address:
+        raise NotImplementedError(
+            "parallel.coordinator_address: multi-process training comes with the port's "
+            "distribution slice (slice 5)")
+
+    from cnmnet_tpu_torch.obs.logger import MetricLogger
+    from cnmnet_tpu_torch.serve import resolve_device
+    from cnmnet_tpu_torch.train.checkpoint import CheckpointManager
+    from cnmnet_tpu_torch.train.loop import train_loop
+
+    device = resolve_device(args.device)
+    logger = MetricLogger(cfg.train.log_dir, config=to_dict(cfg))
+    checkpointer = CheckpointManager(cfg.train.checkpoint_dir, max_to_keep=cfg.train.ckpt_keep,
+                                     device=device)
+    if cfg.dataset.synthetic:
+        from cnmnet_tpu_torch.data.synthetic import train_data_fn
+
+        data_iter = train_data_fn(cfg)
+        epoch_len = cfg.dataset.synthetic_size // cfg.dataset.batch_size
+    else:
+        from cnmnet_tpu_torch.data.pipeline import PrefetchLoader
+        from cnmnet_tpu_torch.data.scannet import ScanNetDataset
+
+        ds = ScanNetDataset(
+            list_filepath=cfg.dataset.list_filepath,
+            root_dir=cfg.dataset.root_dir,
+            view_num=cfg.dataset.view_num,
+            interval=cfg.dataset.interval,
+            depth_scale=cfg.dataset.depth_scale,
+            image_height=cfg.dataset.image_height,
+            image_width=cfg.dataset.image_width,
+            max_planes=cfg.dataset.max_planes,
+            wire_dtype=cfg.dataset.wire_dtype,
+        )
+        loader = PrefetchLoader(ds, batch_size=cfg.dataset.batch_size,
+                                num_workers=cfg.dataset.num_workers, seed=cfg.train.seed)
+
+        def data_iter():
+            return iter(loader)
+
+        epoch_len = len(loader)
+
+    if cfg.train.ckpt_interval is None:
+        # the reference's 8x/epoch cadence (`train.py:402-410`)
+        if cfg.train.steps_per_epoch:
+            epoch_len = min(epoch_len, cfg.train.steps_per_epoch)
+        cfg.train.ckpt_interval = max(1, epoch_len // 8)
+
+    try:
+        state = train_loop(cfg, data_iter, logger=logger, checkpointer=checkpointer,
+                           max_steps=args.max_steps, device=device)
+    finally:
+        logger.close()
+    print(f"done: step {state.step}")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    cfg = _build_config(args)
+    from cnmnet_tpu_torch.evals.seven_scenes_eval import evaluate_seven_scenes, make_eval_forward
+    from cnmnet_tpu_torch.serve import resolve_device
+
+    device = resolve_device(args.device)
+    num_sources = {2: 1, 3: 2, 5: 4, 7: 6}[args.views]
+    if args.eval_tile > 1:
+        print(f"eval-tile={args.eval_tile} needs several devices (distribution slice); "
+              "running unsharded")
+    model = _restored_model(cfg, args.checkpoint)
+    forward = make_eval_forward(model, k_size=cfg.model.k_size, device=device,
+                                compute_dtype=cfg.model.compute_dtype)
+    result = evaluate_seven_scenes(
+        forward,
+        cfg.dataset.root_dir,
+        num_sources=num_sources,
+        image_height=cfg.dataset.image_height,
+        image_width=cfg.dataset.image_width,
+        save_dir=args.save_dir,
+        max_frames_per_seq=args.max_frames_per_seq,
+        frame_batch=args.frame_batch,
+        wire_dtype=cfg.dataset.wire_dtype,
+    )
+    _print_metrics(result)
+    return 0
+
+
+def cmd_cal_metrics(args) -> int:
+    from cnmnet_tpu_torch.evals.cal_metrics import cal_metrics
+
+    result = cal_metrics(args.data_dir, gt_root=args.gt_root, min_depth=args.min_depth,
+                         max_depth=args.max_depth)
+    _print_metrics(result)
+    print(f"wrote {args.data_dir}/evaluation_errors.txt")
+    return 0
+
+
+def cmd_eval_scannet(args) -> int:
+    cfg = _build_config(args)
+    from cnmnet_tpu_torch.evals.scannet_eval import evaluate_scannet, evaluate_scannet_planes
+    from cnmnet_tpu_torch.evals.seven_scenes_eval import make_eval_forward
+    from cnmnet_tpu_torch.serve import resolve_device
+
+    device = resolve_device(args.device)
+    if args.synthetic:
+        from cnmnet_tpu_torch.data.pipeline import normalize_images
+        from cnmnet_tpu_torch.data.synthetic import SyntheticScenes
+
+        ds = SyntheticScenes(
+            num_samples=cfg.dataset.synthetic_size,
+            height=cfg.dataset.image_height,
+            width=cfg.dataset.image_width,
+            view_num=cfg.dataset.view_num,
+            seed=cfg.train.seed,
+        )
+
+        class _Normalized:
+            def __len__(self):
+                return len(ds)
+
+            def __getitem__(self, i):
+                s = dict(ds[i])
+                s["images"] = normalize_images(s["images"])
+                return s
+
+        dataset = _Normalized()
+    else:
+        from cnmnet_tpu_torch.data.scannet import ScanNetDataset
+
+        dataset = ScanNetDataset(
+            list_filepath=cfg.dataset.test_list_filepath or cfg.dataset.list_filepath,
+            root_dir=cfg.dataset.root_dir,
+            view_num=cfg.dataset.view_num,
+            interval=cfg.dataset.interval,
+            depth_scale=cfg.dataset.depth_scale,
+            image_height=cfg.dataset.image_height,
+            image_width=cfg.dataset.image_width,
+            max_planes=cfg.dataset.max_planes,
+            wire_dtype=cfg.dataset.wire_dtype,
+        )
+
+    model = _restored_model(cfg, args.checkpoint)
+    forward = make_eval_forward(model, k_size=cfg.model.k_size, device=device,
+                                compute_dtype=cfg.model.compute_dtype)
+    _print_metrics(evaluate_scannet(forward, dataset, max_samples=args.max_samples))
+    if args.planes:
+        _print_metrics(evaluate_scannet_planes(forward, dataset, max_samples=args.max_samples))
+    return 0
+
+
+def cmd_infer(args) -> int:
+    """Offline batched inference: .npz frames -> ``<stem>.pred.npz`` with the
+    session's output keys."""
+    import numpy as np
+
+    from cnmnet_tpu_torch.serve import InferenceSession
+
+    cfg = _build_config(args)
+    paths = sorted(glob.glob(args.inputs))
+    if not paths:
+        print(f"no inputs match {args.inputs!r}")
+        return 1
+    session = InferenceSession(cfg, checkpoint=args.checkpoint,
+                               batch_buckets=(1, args.batch), device=args.device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    pending, names = [], []
+
+    def flush():
+        if not pending:
+            return
+        out = session.predict(np.stack([p[0] for p in pending]), np.stack([p[1] for p in pending]))
+        for i, name in enumerate(names):
+            np.savez(os.path.join(args.out_dir, name + ".pred.npz"),
+                     **{k: v[i] for k, v in out.items()})
+        pending.clear()
+        names.clear()
+
+    for path in paths:
+        with np.load(path) as z:
+            pending.append((np.asarray(z["images"]), np.asarray(z["cams"])))
+        names.append(os.path.splitext(os.path.basename(path))[0])
+        if len(pending) >= args.batch:
+            flush()
+    flush()
+    print(f"wrote {len(paths)} predictions to {args.out_dir}")
+    return 0
+
+
+def cmd_export_tb(args) -> int:
+    from cnmnet_tpu_torch.obs.tb_export import convert_run
+
+    convert_run(args.run_dir, args.out)
+    return 0
+
+
+COMMANDS = {
+    "train": cmd_train,
+    "eval": cmd_eval,
+    "cal-metrics": cmd_cal_metrics,
+    "eval-scannet": cmd_eval_scannet,
+    "infer": cmd_infer,
+    "export-tb": cmd_export_tb,
+}
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv if argv is not None else sys.argv[1:])
+    return COMMANDS[args.command](args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

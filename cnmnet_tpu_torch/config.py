@@ -9,12 +9,18 @@ to both packages. Two fields read differently here:
 * ``remat``, ``remat_stages``, ``remat_refiner`` and ``stride2`` are
   accepted and ignored: they select TPU lowerings with identical parameters
   and outputs, and the port runs the plain form.
+
+``load_config(path)`` reads a YAML file with the same nesting (PyYAML is
+imported only there, and only for a path: the card's machine may not have
+it); ``apply_overrides(cfg, ["dataset.batch_size=2", ...])`` parses dotted
+overrides to the type of the current value, as the JAX package does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, List, Optional
 
 
 @dataclass
@@ -97,3 +103,76 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+
+
+_SECTION_TYPES = {
+    "SolverConfig": SolverConfig,
+    "DatasetConfig": DatasetConfig,
+    "ModelConfig": ModelConfig,
+    "ParallelConfig": ParallelConfig,
+    "TrainConfig": TrainConfig,
+}
+
+
+def _from_dict(cls, data: dict):
+    names = {f.name: f for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for key, value in data.items():
+        if key not in names:
+            raise KeyError(f"unknown config key {key!r} for {cls.__name__}")
+        section = _SECTION_TYPES.get(names[key].type)
+        kwargs[key] = _from_dict(section, value) if section is not None else value
+    return cls(**kwargs)
+
+
+def load_config(path: Optional[str] = None) -> Config:
+    if path is None:
+        return Config()
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(f"load_config({path!r}) reads YAML and needs PyYAML, which is not "
+                          "installed; pass dotted overrides instead") from e
+    with open(path) as f:
+        data = yaml.safe_load(f) or {}
+    return _from_dict(Config, data)
+
+
+def _parse_value(text: str, current: Any) -> Any:
+    if isinstance(current, bool):
+        return text.lower() in ("1", "true", "yes")
+    if current is None:
+        if text.lower() in ("none", "null"):
+            return None
+        for caster in (int, float):
+            try:
+                return caster(text)
+            except ValueError:
+                pass
+        return text
+    if isinstance(current, int):
+        return int(text)
+    if isinstance(current, float):
+        return float(text)
+    return text
+
+
+def apply_overrides(cfg: Config, overrides: List[str]) -> Config:
+    """Apply ``section.key=value`` strings (typed by the current value)."""
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override must be key=value, got {item!r}")
+        dotted, text = item.split("=", 1)
+        parts = dotted.split(".")
+        obj = cfg
+        for p in parts[:-1]:
+            obj = getattr(obj, p)
+        leaf = parts[-1]
+        if not hasattr(obj, leaf):
+            raise KeyError(f"unknown config key {dotted!r}")
+        setattr(obj, leaf, _parse_value(text, getattr(obj, leaf)))
+    return cfg
+
+
+def to_dict(cfg: Config) -> dict:
+    return dataclasses.asdict(cfg)

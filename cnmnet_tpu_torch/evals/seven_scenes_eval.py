@@ -40,6 +40,7 @@ from cnmnet_tpu_torch.data.pipeline import denormalize_images
 from cnmnet_tpu_torch.data.seven_scenes import SevenScenes
 from cnmnet_tpu_torch.evals.cal_metrics import frame_metrics
 from cnmnet_tpu_torch.obs.colorize import colorize_depth, colorize_prob, normal_to_color
+from cnmnet_tpu_torch.obs.meters import synchronize
 
 EVAL_PROTOCOLS = {
     # num_sources: source offsets in reference order plus the reference's
@@ -116,15 +117,6 @@ def _save_frame_artifacts(save_dir, p, idepth, prob_map, normal):
         save_png("prob_map", "prob_map", colorize_prob(prob_map))
 
 
-def _synchronize(outputs) -> None:
-    """Wait for the device that computed ``outputs`` (the forward returns
-    before a CUDA device finishes)."""
-    for o in outputs:
-        if isinstance(o, torch.Tensor) and o.is_cuda:
-            torch.cuda.synchronize(o.device)
-            return
-
-
 def _fetch(outputs):
     """``(idepth, prob | None, normal | None)`` as float32 numpy, packed on
     the device along the channel axis and copied to the host at once."""
@@ -194,7 +186,7 @@ def evaluate_seven_scenes(
             cams = np.concatenate([cams, np.repeat(cams[-1:], reps, 0)])
         t0 = time.monotonic()
         out = forward_fn(images, cams)
-        _synchronize(out)
+        synchronize(out)  # the forward returns before a CUDA device finishes
         total_time += time.monotonic() - t0
         count += n
         idepth, prob_map, normal = _fetch(out)

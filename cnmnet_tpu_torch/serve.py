@@ -1,4 +1,5 @@
-"""Batched inference serving (``cnmnet_tpu/serve.py:InferenceSession``).
+"""Batched inference serving (``cnmnet_tpu/serve.py``): checkpoint-backed
+sessions and request micro-batching.
 
 ``InferenceSession.predict(images [B, V, H, W, 3] (uint8 or f32), cams
 [B, V, 2, 4, 4])`` runs the refined forward on the session's device and
@@ -7,34 +8,70 @@ prob ``[B, H, W]`` (3+ views with the refiner only) and normal ``[B, H, W,
 3]``, restricted to the session's ``outputs``:
 
 * batches are padded up to the next bucket by repeating the last frame and
-  cropped back; batches above the top bucket run in top-bucket chunks
-  (inference is per sample: BatchNorm uses its running statistics);
+  cropped back; batches above the top bucket run in top-bucket chunks,
+  every chunk dispatched under the session's lock and all of them fetched
+  after it is released (inference is per sample: BatchNorm uses its running
+  statistics);
 * the selected outputs are packed into ONE ``[B, H, W, C]`` device tensor,
   cast with saturation to ``wire_dtype`` (raw depth can exceed float16's
-  range), and cross to the host in one ``.cpu()`` transfer;
+  range), and cross to the host in one copy;
 * on CUDA the model computes in bf16 unless ``compute_dtype`` says
   otherwise, with its norm layers' parameters and statistics kept in f32
   (``models/cnm.py:cast_for_compute``); the cost volume and depth->normal
   run as CUDA kernels.
 
-Weights come from a torch ``state_dict`` of the port's ``CNMModel``, from a
-flax variables tree of the JAX package (``models/transplant.py``), or from
-the seeded He-normal initialisation of ``models/layers.init_weights``.
+``predict_async(images, cams) -> handle`` dispatches one batch no larger
+than the top bucket and returns without waiting: on CUDA the inputs go up
+from pinned host memory (``non_blocking``), the packed wire is copied into a
+pinned host tensor that the handle owns, and a CUDA event is recorded after
+the copy; ``fetch(handle)`` waits on that event and unpacks. On the CPU both
+run synchronously.
 
-Deliberate differences from the JAX session:
+Weights come from a port checkpoint (``checkpoint=``: a step, ``"latest"``,
+a manager root or a step directory, restored through
+``train/checkpoint.CheckpointManager(cfg.train.checkpoint_dir or ".")``,
+weights only; nothing restored raises ``FileNotFoundError``), a torch
+``state_dict`` of the port's ``CNMModel``, a flax variables tree of the JAX
+package (``models/transplant.py``), or the seeded He-normal initialisation
+of ``models/layers.init_weights``.
+
+``MicroBatcher(session, max_batch, max_wait_ms)`` coalesces concurrent
+single-frame ``submit``s into batches on one thread, double-buffered: it
+dispatches batch N+1 before it fetches batch N.
+
+Deliberate differences from the JAX package:
 
 * empty ``outputs`` raises in ``__init__`` (the JAX session fails later,
   inside the compiled forward);
 * an ``outputs`` selection that a request's signature filters to nothing
   (``("prob",)`` against two views) raises ``ValueError``;
-* ``MicroBatcher``, ``predict_async``, mesh serving and orbax restore are
-  not ported yet.
+* ``predict`` fetches its chunks after releasing the lock (the JAX session
+  holds it across the chunked fetch, stalling the batcher's dispatches);
+* ``MicroBatcher`` serves a coalesced batch larger than the top bucket in
+  top-bucket chunks (the JAX batcher hands it to ``predict_async``, which
+  refuses it, failing every waiter);
+* ``MicroBatcher`` coalesces per ``(V, H, W, dtype)`` signature and
+  dispatches each signature on its own (the JAX batcher stacks a mixed
+  batch, which raises and fails every waiter);
+* a future cancelled before its batch is collected is dropped, and one
+  collected can no longer be cancelled, so delivering a result never raises
+  (the JAX batcher's unguarded ``set_result`` on a cancelled future fails
+  the batch's other waiters);
+* a malformed request (rank, shape, dtype, fewer than two views) fails its
+  own future at ``submit``; a failed dispatch or fetch fails only the
+  futures of that chunk;
+* mesh serving is not ported (slice 5), and checkpoints are the port's
+  ``torch.save`` format, not orbax's.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, Mapping, Optional, Sequence
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -76,6 +113,39 @@ def build_model(cfg: Config) -> CNMModel:
     )
 
 
+def restore_weights(model: CNMModel, checkpoint, directory: str) -> None:
+    """Load the weights of a port checkpoint into ``model``: ``checkpoint``
+    is a step of the ``train/checkpoint.CheckpointManager`` at
+    ``directory``, ``"latest"``, another manager's root or a step
+    directory. Nothing to restore raises ``FileNotFoundError``."""
+    from cnmnet_tpu_torch.train.checkpoint import CheckpointManager
+    from cnmnet_tpu_torch.train.state import TrainState
+
+    mgr = CheckpointManager(directory or ".", device="cpu")
+    if mgr.restore(checkpoint, TrainState(model=model), with_optimizer=False) is None:
+        raise FileNotFoundError(f"no checkpoint {checkpoint!r} under {mgr.directory}")
+
+
+def _check_batch(images, cams):
+    images = np.asarray(images)
+    cams = np.asarray(cams, np.float32)
+    if images.ndim != 5 or cams.ndim != 5 or not len(images):
+        raise ValueError(f"want images [B, V, H, W, 3] and cams [B, V, 2, 4, 4] with B >= 1, "
+                         f"got {images.shape} and {cams.shape}")
+    return images, cams
+
+
+class Handle(NamedTuple):
+    """A dispatched batch: the packed wire (a pinned host tensor on CUDA),
+    the event recorded after its copy (None on the CPU), the layout and the
+    number of real frames."""
+
+    wire: torch.Tensor
+    done: Optional["torch.cuda.Event"]
+    layout: list
+    frames: int
+
+
 class InferenceSession:
     OUTPUT_CHANNELS = {"idepth": 1, "depth": 1, "prob": 1, "normal": 3}
 
@@ -84,6 +154,7 @@ class InferenceSession:
         cfg: Optional[Config] = None,
         state_dict: Optional[Mapping[str, torch.Tensor]] = None,
         flax_variables: Optional[Mapping] = None,
+        checkpoint: Union[int, str, None] = None,
         seed: int = 0,
         batch_buckets: Sequence[int] = (1, 4, 8),
         k_size: Optional[int] = None,
@@ -101,8 +172,9 @@ class InferenceSession:
                              f"choose from {sorted(self.OUTPUT_CHANNELS)}")
         if wire_dtype not in WIRE_DTYPES:
             raise ValueError(f"unsupported wire_dtype {wire_dtype!r}")
-        if state_dict is not None and flax_variables is not None:
-            raise ValueError("pass state_dict or flax_variables, not both")
+        if sum(w is not None for w in (state_dict, flax_variables, checkpoint)) > 1:
+            raise ValueError("pass only one of checkpoint, state_dict and flax_variables "
+                             "(not both)")
         self.device = resolve_device(device)
         self.outputs = tuple(outputs)
         self.wire_dtype = WIRE_DTYPES[wire_dtype]
@@ -115,8 +187,12 @@ class InferenceSession:
         self.buckets = tuple(sorted(set(int(b) for b in batch_buckets)))
         self.k_size = k_size or self.cfg.model.k_size
 
+        self._lock = threading.Lock()
+
         model = build_model(self.cfg)
-        if state_dict is not None:
+        if checkpoint is not None:
+            restore_weights(model, checkpoint, self.cfg.train.checkpoint_dir)
+        elif state_dict is not None:
             model.load_state_dict(state_dict)
         elif flax_variables is not None:
             load_flax_variables(model, flax_variables)
@@ -155,39 +231,60 @@ class InferenceSession:
             packed = packed.clamp(fin.min, fin.max)
         return packed.to(self.wire_dtype)
 
-    def _run(self, images: np.ndarray, cams: np.ndarray) -> Dict[str, np.ndarray]:
-        """One chunk no larger than the top bucket: pad, forward, one transfer, crop."""
+    def _dispatch(self, images: np.ndarray, cams: np.ndarray) -> Handle:
+        """One chunk no larger than the top bucket, under the lock: pad,
+        upload, forward, and the wire's copy to the host, without waiting."""
         B, V = images.shape[:2]
         bucket = _next_bucket(B, self.buckets)
         if B < bucket:
             images = np.concatenate([images] + [images[-1:]] * (bucket - B), 0)
             cams = np.concatenate([cams] + [cams[-1:]] * (bucket - B), 0)
         layout = self._layout(V)
-        packed = self._forward(
-            torch.from_numpy(np.ascontiguousarray(images)).to(self.device),
-            torch.from_numpy(np.ascontiguousarray(cams)).to(self.device),
-            layout,
-        )
-        arr = packed.cpu()  # the single device->host transfer
+        img = torch.from_numpy(np.ascontiguousarray(images))
+        cam = torch.from_numpy(np.ascontiguousarray(cams))
+        if self.device.type != "cuda":
+            return Handle(self._forward(img, cam, layout), None, layout, B)
+        img = img.pin_memory().to(self.device, non_blocking=True)
+        cam = cam.pin_memory().to(self.device, non_blocking=True)
+        packed = self._forward(img, cam, layout)
+        wire = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        wire.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return Handle(wire, done, layout, B)
+
+    def fetch(self, handle: Handle) -> Dict[str, np.ndarray]:
+        """Wait for a dispatched batch and unpack its wire."""
+        if handle.done is not None:
+            handle.done.synchronize()
+        arr = handle.wire
         arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
         out, c = {}, 0
-        for name, nc in layout:
-            a = arr[:B, ..., c : c + nc]
+        for name, nc in handle.layout:
+            a = arr[: handle.frames, ..., c : c + nc]
             c += nc
             out[name] = (a[..., 0] if nc == 1 else a).astype(np.float32)
         return out
 
+    def predict_async(self, images: np.ndarray, cams: np.ndarray) -> Handle:
+        """Dispatch one batch of at most the top bucket and return its
+        handle at once; ``fetch(handle)`` gives ``predict``'s result."""
+        images, cams = _check_batch(images, cams)
+        if images.shape[0] > self.buckets[-1]:
+            raise ValueError(f"predict_async batch {images.shape[0]} exceeds the top bucket "
+                             f"{self.buckets[-1]}; chunk via predict()")
+        with self._lock:
+            return self._dispatch(images, cams)
+
     def predict(self, images: np.ndarray, cams: np.ndarray) -> Dict[str, np.ndarray]:
-        images = np.asarray(images)
-        cams = np.asarray(cams, np.float32)
-        if images.ndim != 5 or cams.ndim != 5:
-            raise ValueError(f"want images [B, V, H, W, 3] and cams [B, V, 2, 4, 4], "
-                             f"got {images.shape} and {cams.shape}")
+        images, cams = _check_batch(images, cams)
         top = self.buckets[-1]
-        if images.shape[0] <= top:
-            return self._run(images, cams)
-        outs = [self._run(images[i : i + top], cams[i : i + top])
-                for i in range(0, images.shape[0], top)]
+        with self._lock:
+            handles = [self._dispatch(images[i : i + top], cams[i : i + top])
+                       for i in range(0, images.shape[0], top)]
+        outs = [self.fetch(h) for h in handles]
+        if len(outs) == 1:
+            return outs[0]
         return {k: np.concatenate([o[k] for o in outs], 0) for k in outs[0]}
 
     def warmup(self, views: int, height: int, width: int):
@@ -199,3 +296,152 @@ class InferenceSession:
                 [[100.0, 0, width / 2], [0, 100.0, height / 2], [0, 0, 1]], np.float32
             )
             self.predict(images, cams)
+
+
+class _Request(NamedTuple):
+    images: np.ndarray  # [V, H, W, 3]
+    cams: np.ndarray  # [V, 2, 4, 4] f32
+    future: Future
+
+    @property
+    def signature(self):
+        return self.images.shape[:3] + (self.images.dtype.str,)
+
+
+def _check_request(images, cams):
+    images = np.asarray(images)
+    cams = np.asarray(cams, np.float32)
+    if (images.ndim != 4 or images.shape[0] < 2 or images.shape[-1] != 3
+            or images.dtype not in (np.uint8, np.float32)
+            or cams.shape != (images.shape[0], 2, 4, 4)):
+        raise ValueError(f"want images [V >= 2, H, W, 3] uint8 or float32 and cams "
+                         f"[V, 2, 4, 4], got {images.dtype} {images.shape} and {cams.shape}")
+    return images, cams
+
+
+class MicroBatcher:
+    """Coalesce concurrent single-frame requests into batched forwards.
+
+    ``submit(images [V, H, W, 3], cams [V, 2, 4, 4]) -> Future`` resolving
+    to that request's slice of ``InferenceSession.predict``'s dict.
+
+    One thread drains the queue. With no batch in flight it waits for a
+    request, then up to ``max_wait_ms`` for the batch to fill to
+    ``max_batch``; with one in flight it takes only what is queued. It
+    splits the batch by signature and each signature into top-bucket
+    chunks, dispatches each chunk (``predict_async``), and only then fetches
+    the batch before it: the next batch's upload and forward overlap the
+    previous one's copy to the host. ``dispatched`` counts the chunks handed
+    to the session (one forward each) and ``served`` the requests they
+    carried. See the module docstring for what differs from the JAX
+    batcher.
+    """
+
+    def __init__(self, session: InferenceSession, max_batch: int = 8, max_wait_ms: float = 5.0):
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be at least 1, got {max_batch}")
+        self.session = session
+        self.max_batch = int(max_batch)
+        self.max_wait = max_wait_ms / 1e3
+        self.dispatched = 0
+        self.served = 0
+        self._q: "queue.Queue" = queue.Queue()
+        self._closed = False
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, name="MicroBatcher", daemon=True)
+        self._thread.start()
+
+    def submit(self, images: np.ndarray, cams: np.ndarray) -> Future:
+        if self._closed:
+            raise RuntimeError("submit on a closed MicroBatcher")
+        fut: Future = Future()
+        try:
+            images, cams = _check_request(images, cams)
+        except (ValueError, TypeError) as e:
+            fut.set_exception(e)
+            return fut
+        self._q.put(_Request(images, cams, fut))
+        return fut
+
+    def close(self, timeout: float = 60.0) -> None:
+        """Serve what was submitted, then stop the thread."""
+        self._closed = True
+        self._q.put(None)
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise RuntimeError(f"MicroBatcher did not stop within {timeout} s")
+
+    # -- internals --------------------------------------------------------
+
+    def _collect(self, block: bool) -> List[_Request]:
+        """One coalesced batch of live requests; [] when none is queued or
+        the stop sentinel arrives. A request whose future was cancelled is
+        dropped; the others are marked running, so they can no longer be."""
+        batch: List[_Request] = []
+        deadline = None
+        while len(batch) < self.max_batch:
+            left = 0.0 if deadline is None else deadline - time.monotonic()
+            try:
+                if not batch and block:
+                    item = self._q.get()
+                    deadline = time.monotonic() + self.max_wait
+                elif left > 0:
+                    item = self._q.get(timeout=left)
+                else:
+                    item = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if item is None:
+                self._stop.set()
+                break
+            if item.future.set_running_or_notify_cancel():
+                batch.append(item)
+        return batch
+
+    def _dispatch(self, batch: List[_Request]):
+        """``predict_async`` per signature and top-bucket chunk -> ``[(chunk,
+        handle)]``; a chunk whose dispatch raises fails its own futures."""
+        groups: Dict[tuple, List[_Request]] = {}
+        for r in batch:
+            groups.setdefault(r.signature, []).append(r)
+        top = self.session.buckets[-1]
+        out = []
+        for reqs in groups.values():
+            for i in range(0, len(reqs), top):
+                chunk = reqs[i : i + top]
+                try:
+                    handle = self.session.predict_async(
+                        np.stack([r.images for r in chunk]), np.stack([r.cams for r in chunk]))
+                except Exception as e:  # this chunk's waiters get it; serving goes on
+                    for r in chunk:
+                        r.future.set_exception(e)
+                    continue
+                self.dispatched += 1
+                self.served += len(chunk)
+                out.append((chunk, handle))
+        return out
+
+    def _resolve(self, chunk: List[_Request], handle: Handle) -> None:
+        try:
+            out = self.session.fetch(handle)
+        except Exception as e:  # this chunk's waiters get it; serving goes on
+            for r in chunk:
+                r.future.set_exception(e)
+            return
+        for i, r in enumerate(chunk):
+            r.future.set_result({k: v[i] for k, v in out.items()})
+
+    def _loop(self):
+        pending = []
+        while pending or not self._stop.is_set():
+            dispatched = self._dispatch(self._collect(block=not pending))
+            for chunk, handle in pending:
+                self._resolve(chunk, handle)
+            pending = dispatched
+        while True:  # requests that raced close()
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                return
+            if item is not None and item.future.set_running_or_notify_cancel():
+                item.future.set_exception(RuntimeError("the MicroBatcher was closed"))

@@ -6,21 +6,24 @@ a train-mode forward of ``CNMModel`` on ``prepare_images(batch["images"])``
 ``compute_losses``, the gradients of the loss, and one optimizer update.
 The state is updated in place and returned. ``metrics`` holds the loss
 terms and ``grad_norm``, the global norm of the unclipped gradients, as
-detached scalars on the device.
+detached scalars on the device, and ``viz``: the detached maps of the image
+summaries (``pred_idepth_01``, and ``pred_idepth_refined`` and ``prob_map``
+when the refiner runs), from microbatch 0 under ``grad_accum``.
 
 With ``train.grad_accum = A > 1`` the batch is split into A microbatches of
 consecutive samples; each runs forward and backward in turn (the BatchNorm
 statistics move once per microbatch, chained), the gradients and metrics
 are averaged, and one update follows.
 
-``train_loop`` is the JAX driver without the mesh and the image summaries:
-checkpoints every ``train.ckpt_interval`` steps, at every epoch end and at
-``max_steps``; a watchdog that halts after three consecutive non-finite
-losses (it reads the previous step's loss, which is ready by then); SIGTERM
-and ^C raised as ``KeyboardInterrupt`` once the running step has finished;
-a checkpoint saved on every way out;
-``train.steps_per_epoch``; resume from ``train.resume_dir``. The trainer
-sets no global precision flag (TF32 stays as the caller left it).
+``train_loop`` is the JAX driver without the mesh: checkpoints every
+``train.ckpt_interval`` steps, at every epoch end and at ``max_steps``; a
+watchdog that halts after three consecutive non-finite losses (it reads the
+previous step's loss, which is ready by then); SIGTERM and ^C raised as
+``KeyboardInterrupt`` once the running step has finished; a checkpoint
+saved on every way out; ``train.steps_per_epoch``; resume from
+``train.resume_dir``; scalars every ``train.print_interval`` steps and the
+image summaries (``_log_images``) every ten of those. The trainer sets no
+global precision flag (TF32 stays as the caller left it).
 """
 
 from __future__ import annotations
@@ -59,12 +62,18 @@ def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
 def loss_and_grads(model, batch: Dict[str, torch.Tensor], epoch: int, w: LossWeights):
     """One forward of ``model`` (in the mode it is in) on a batch of tensors:
     the gradient of the loss for every parameter, in ``model.parameters()``
-    order (zeros where a parameter took no part), and the loss terms."""
+    order (zeros where a parameter took no part), the loss terms, and the
+    detached maps of the image summaries."""
     params = list(model.parameters())
     out = model(prepare_images(batch["images"]), batch["cams"])
     loss, metrics = compute_losses(out, batch, epoch, w)
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)], metrics
+    viz = {"pred_idepth_01": out.disps[0][:, 0].detach()}
+    if out.idepth_refined is not None:
+        viz["pred_idepth_refined"] = out.idepth_refined.detach()
+        viz["prob_map"] = out.prob_map.detach()
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+    return grads, metrics, viz
 
 
 def make_train_step(cfg: Config) -> Callable:
@@ -81,19 +90,21 @@ def make_train_step(cfg: Config) -> Callable:
         batch = batch_to_device(batch, device)
         state.model.train()
         if accum == 1:
-            grads, metrics = loss_and_grads(state.model, batch, state.epoch, w)
+            grads, metrics, viz = loss_and_grads(state.model, batch, state.epoch, w)
         else:
             for k, v in batch.items():
                 if v.shape[0] % accum:
                     raise ValueError(f"train.grad_accum={accum} requires the batch divisible "
                                      f"by it; {k!r} has leading dim {v.shape[0]}")
             m = next(iter(batch.values())).shape[0] // accum
-            grads = metrics = None
+            grads = metrics = viz = None
             for i in range(accum):
                 mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-                g, mm = loss_and_grads(state.model, mb, state.epoch, w)
+                g, mm, vz = loss_and_grads(state.model, mb, state.epoch, w)
                 grads = g if grads is None else [a + b for a, b in zip(grads, g)]
                 metrics = mm if metrics is None else {k: metrics[k] + mm[k] for k in metrics}
+                if i == 0:
+                    viz = vz
             inv = 1.0 / accum
             grads = [g * inv for g in grads]
             metrics = {k: v * inv for k, v in metrics.items()}
@@ -101,9 +112,38 @@ def make_train_step(cfg: Config) -> Callable:
         opt.apply(params, updates)
         state.step += 1
         metrics["grad_norm"] = global_norm(grads)
+        metrics["viz"] = viz
         return state, metrics
 
     return step
+
+
+def _log_images(logger, step: int, batch, viz):
+    """The periodic image and histogram summaries of the first sample
+    (``cnmnet_tpu/train/loop.py:_log_images``). Only that sample's maps
+    cross to the host, so the histograms summarise it, where the JAX
+    package's summarise the batch. The copy runs outside the ``try``: a
+    device failure raises; a failure of the logging itself is printed and
+    training goes on."""
+    from cnmnet_tpu_torch.data.pipeline import denormalize_images
+    from cnmnet_tpu_torch.obs.colorize import colorize_idepth, colorize_prob, normal_to_color
+
+    host = {k: v[:1].float().cpu().numpy() for k, v in viz.items()}
+    first = {k: np.asarray(batch[k][:1].cpu() if isinstance(batch[k], torch.Tensor)
+                           else batch[k][:1]) for k in ("images", "disparity", "normals")}
+    try:
+        logger.log_image(step, "rgb", np.clip(denormalize_images(first["images"][0, 0]), 0, 1))
+        logger.log_image(step, "gt_idepth", colorize_idepth(first["disparity"][0]))
+        logger.log_image(step, "gt_normal", normal_to_color(first["normals"][0]))
+        logger.log_image(step, "pred_idepth_01", colorize_idepth(host["pred_idepth_01"][0, ..., 0]))
+        if "pred_idepth_refined" in host:
+            logger.log_image(step, "pred_idepth_refined",
+                             colorize_idepth(host["pred_idepth_refined"][0, ..., 0]))
+            logger.log_image(step, "prob_map", colorize_prob(host["prob_map"][0, ..., 0]))
+            logger.log_histogram(step, "prob_map", host["prob_map"])
+        logger.log_histogram(step, "pred_idepth_01", host["pred_idepth_01"])
+    except Exception as e:  # logging must never end a run
+        print(f"image logging failed: {e!r}")
 
 
 def train_loop(
@@ -115,8 +155,8 @@ def train_loop(
     device="cuda",
 ) -> TrainState:
     """Epoch driver: initialise (or resume), iterate, log, checkpoint; see
-    the module docstring. ``logger`` is anything with ``log_scalars(step,
-    scalars, prefix=...)``; ``checkpointer`` a ``CheckpointManager`` (or
+    the module docstring. ``logger`` is a ``MetricLogger`` (or anything with
+    ``log_scalars``, ``log_image`` and ``log_histogram``); ``checkpointer`` a ``CheckpointManager`` (or
     anything with ``save``, ``wait`` and ``restore``)."""
     state = create_train_state(cfg, cfg.train.seed, device)
     start_epoch = 0
@@ -157,6 +197,7 @@ def train_loop(
                     break
                 state, metrics = step_fn(state, batch)
                 global_step += 1
+                viz = metrics.pop("viz", None)
                 if prev_loss is not None:
                     nan_streak = nan_streak + 1 if not np.isfinite(float(prev_loss)) else 0
                     if nan_streak >= 3:
@@ -176,6 +217,8 @@ def train_loop(
                     scalars = {k: float(v) for k, v in metrics.items()}
                     scalars["step_time"] = (time.monotonic() - tic) / (it + 1)
                     logger.log_scalars(global_step, scalars, prefix=f"epoch {epoch}")
+                    if viz is not None and it % (cfg.train.print_interval * 10) == 0:
+                        _log_images(logger, global_step, batch, viz)
                 if stop:
                     raise KeyboardInterrupt(stop[0])
             if checkpointer is not None:

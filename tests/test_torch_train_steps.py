@@ -51,9 +51,12 @@ def test_loss_decreases_and_finite(batch):
     losses = []
     for _ in range(6):
         state, metrics = step(state, batch)
+        viz = metrics.pop("viz")
         losses.append(float(metrics["loss"]))
         assert np.isfinite(losses[-1]) and np.isfinite(float(metrics["grad_norm"]))
         assert all(m.dim() == 0 and not m.requires_grad for m in metrics.values())
+        assert set(viz) == {"pred_idepth_01", "pred_idepth_refined", "prob_map"}
+        assert all(v.shape == (2, H, W, 1) and not v.requires_grad for v in viz.values())
     assert losses[-1] < losses[0], losses
     assert state.step == 6 and state.opt_state["count"] == 6
 
@@ -105,7 +108,7 @@ def test_accum_matches_sequential_reference(batch):
     total, losses = None, []
     for i in range(2):  # a Python loop over one-sample microbatches
         mb = loop_mod.batch_to_device({k: v[i:i + 1] for k, v in batch.items()}, "cpu")
-        g, m = loop_mod.loss_and_grads(model, mb, 0, w)
+        g, m, _ = loop_mod.loss_and_grads(model, mb, 0, w)
         total = g if total is None else [a + b for a, b in zip(total, g)]
         losses.append(float(m["loss"]))
     grads = [x * 0.5 for x in total]
@@ -135,7 +138,7 @@ def test_no_valid_depth_drops_normal_terms_with_finite_gradients(batch):
     cfg = _cfg()
     state = create_train_state(cfg, 0, "cpu")
     tb = loop_mod.batch_to_device(b, "cpu")
-    grads, metrics = loop_mod.loss_and_grads(state.model.train(), tb, 0,
+    grads, metrics, _ = loop_mod.loss_and_grads(state.model.train(), tb, 0,
                                              loop_mod.loss_weights_from_config(cfg))
     assert np.isnan(float(metrics["loss_normal_depth"]))
     assert np.isfinite(float(metrics["loss"]))
@@ -215,3 +218,79 @@ def test_train_loop_on_synthetic_scenes_logs_scalars():
     assert [s for s, _, _ in logged] == [1]  # step 2 ends the run before its log line
     step, prefix, scalars = logged[0]
     assert prefix == "epoch 0" and np.isfinite(scalars["loss"]) and "grad_norm" in scalars
+
+
+class _SummaryLogger:
+    """Records every scalar, image and histogram call."""
+
+    def __init__(self, fail_images=False):
+        self.scalars, self.images, self.histograms = [], [], []
+        self.fail_images = fail_images
+
+    def log_scalars(self, step, scalars, prefix=""):
+        self.scalars.append(step)
+
+    def log_image(self, step, tag, image):
+        if self.fail_images:
+            raise OSError("disk full")
+        assert image.ndim == 3 and image.shape[-1] == 3
+        self.images.append((step, tag))
+
+    def log_histogram(self, step, tag, values):
+        self.histograms.append((step, tag, np.asarray(values).shape))
+
+
+def test_image_summaries_at_the_jax_cadence(batch, monkeypatch):
+    """Scalars every ``print_interval`` iterations, the image summaries at
+    ``it % (print_interval * 10) == 0`` (``cnmnet_tpu/train/loop.py:401``),
+    of the first sample only; ``viz`` leaves the logged metrics."""
+    def fake_make_train_step(cfg):
+        def fake_step(state, b):
+            state.step += 1
+            maps = torch.rand(2, H, W, 1)
+            return state, {"loss": torch.tensor(1.0),
+                           "viz": {"pred_idepth_01": maps, "pred_idepth_refined": maps,
+                                   "prob_map": maps}}
+        return fake_step
+
+    monkeypatch.setattr(loop_mod, "make_train_step", fake_make_train_step)
+    cfg = _cfg(num_epochs=1, steps_per_epoch=45, print_interval=2)
+    log = _SummaryLogger()
+    loop_mod.train_loop(cfg, lambda: iter([batch] * 45), logger=log, device="cpu")
+    assert log.scalars == list(range(1, 46, 2))
+    tags = ["rgb", "gt_idepth", "gt_normal", "pred_idepth_01", "pred_idepth_refined", "prob_map"]
+    assert log.images == [(s, t) for s in (1, 21, 41) for t in tags]
+    assert log.histograms == [(s, t, (1, H, W, 1)) for s in (1, 21, 41)
+                              for t in ("prob_map", "pred_idepth_01")]
+
+
+def test_image_summaries_from_a_real_step_and_failures(batch, capsys):
+    cfg = _cfg()
+    state = create_train_state(cfg, 0, "cpu")
+    _, metrics = make_train_step(cfg)(state, batch)
+    log = _SummaryLogger()
+    loop_mod._log_images(log, 1, batch, metrics["viz"])
+    assert len(log.images) == 6 and len(log.histograms) == 2
+    # a failure of the logging itself is printed and the run goes on
+    loop_mod._log_images(_SummaryLogger(fail_images=True), 1, batch, metrics["viz"])
+    assert "image logging failed" in capsys.readouterr().out
+
+    class Lost:  # a map whose copy to the host fails, as a lost device would
+        def __getitem__(self, index):
+            raise RuntimeError("device lost")
+
+    with pytest.raises(RuntimeError, match="device lost"):
+        loop_mod._log_images(log, 1, batch, {"pred_idepth_01": Lost()})
+
+
+def test_grad_accum_summaries_come_from_microbatch_0(batch):
+    cfg = _cfg(grad_accum=2)
+    state = create_train_state(cfg, 0, "cpu")
+    ref = copy.deepcopy(state)
+    _, metrics = make_train_step(cfg)(state, batch)
+    mb0 = loop_mod.batch_to_device({k: v[:1] for k, v in batch.items()}, "cpu")
+    _, _, want = loop_mod.loss_and_grads(ref.model.train(), mb0, 0,
+                                          loop_mod.loss_weights_from_config(cfg))
+    assert set(metrics["viz"]) == set(want)
+    for k, v in want.items():
+        assert torch.equal(metrics["viz"][k], v), k
