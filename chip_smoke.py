@@ -87,8 +87,36 @@ source, in parallel), then:
    same batches) and ``export-tb`` (the scalars of ``events.jsonl``), each
    with its seconds and launches.
 
+9. trains at scale: (a) the phase-6 step in bf16 (convs in bf16; f32
+   parameters, Adam moments and norm statistics): one cost volume and
+   three depth->normals a step, a conv's output in bf16, the first step's
+   loss terms against the f32 step from the same weights (the CPU test's
+   bf16 tolerances: 2e-2 relative, 5e-2 for the normal terms), its
+   ``grad_norm`` (2e-2) and the gradient with running statistics (0.2
+   relative L2),
+   the median of 10 steps after 3 warm-ups and one trace; (b) the bf16
+   step at 480x640, batch 4, with remat off, ``remat_stages=-1``, ``2``,
+   and ``2`` with ``remat_refiner``: ``torch.cuda.max_memory_allocated``
+   and the median step time, each remat step's loss terms, running
+   statistics against the plain step (1e-3 relative), its ``grad_norm``
+   (5e-3) and Adam's first moment (5e-2 relative L2; the plain step rerun
+   is the floor), and both kernels against their plain versions at this
+   path's shapes (8 pairs f32 and bf16, 4 depth maps); (c) the tile axis
+   emulated on one card, tile 2 and 4 at
+   192x256 and 480x640: every row shard's launch with its global row
+   offset (depth rows with their halo, reference rows against the whole
+   source), the shards equal to the untiled kernel and each to the plain
+   version with its offset (max abs 0), each shard's time against the
+   untiled launch, with its bound; (d) ``torch.distributed`` on NCCL at
+   world size 1: one ``make_train_step(cfg, make_mesh())`` step against
+   the plain step from the same weights (loss terms, running statistics
+   and ``grad_norm`` within 1e-3, Adam's first moment within 0.1), then ``cli train`` with ``parallel.coordinator_address`` for 2
+   steps and a resume to step 3. The launch counters are set to 0 just
+   before each path and read just after.
+
 Prints the build seconds, the kernel table as one JSON line (with each
-kernel's launches in phases 3, 6, 7 and 8), the card's
+kernel's launches in phases 3, 6, 7, 8 and 9, their total, and the tiled
+shards' times), the card's
 name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Any failed check raises, and the script exits non-zero without that line.
@@ -775,7 +803,7 @@ def eval_model(torch, device, root, h, w, planes):
     from cnmnet_tpu_torch.config import Config
     from cnmnet_tpu_torch.data.seven_scenes import SevenScenes
     from cnmnet_tpu_torch.models.layers import init_weights
-    from cnmnet_tpu_torch.serve import build_model
+    from cnmnet_tpu_torch.train.state import build_model
 
     cfg = Config()
     cfg.model.num_planes = planes
@@ -1379,7 +1407,8 @@ def cli_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, fram
     from cnmnet_tpu_torch.evals import scannet_eval, seven_scenes_eval
     from cnmnet_tpu_torch.models.layers import init_weights
     from cnmnet_tpu_torch.obs.tb_export import parse_proto, read_records
-    from cnmnet_tpu_torch.serve import InferenceSession, build_model
+    from cnmnet_tpu_torch.serve import InferenceSession
+    from cnmnet_tpu_torch.train.state import build_model
     from cnmnet_tpu_torch.train.checkpoint import CheckpointManager
     from cnmnet_tpu_torch.train.state import TrainState
 
@@ -1526,6 +1555,451 @@ def cli_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, fram
     return total, seconds
 
 
+# -- phase 9: training at scale (bf16, remat, tiled kernels, data parallel) ----
+
+# The CPU tests' bf16 tolerances (tests/test_torch_train.py): loss terms
+# within 2e-2 relative, the three normal terms within 5e-2.
+BF16_RTOL, BF16_NORMALS_RTOL = 2e-2, 5e-2
+# The bf16 gradient against the f32 one from the same weights: the train
+# step's grad_norm (relative), and the gradient with BatchNorm on running
+# statistics (relative L2). Conv weights that take no gradient through
+# their bf16 cast give about 1 in both. The train-mode gradient itself is
+# not held: the random net's is chaotic under bf16 rounding.
+BF16_GRAD_NORM_TOL = 2e-2
+BF16_EVAL_GRAD_TOL = 0.2
+
+
+def scale_heads(torch, model, factor=0.05):
+    """Scale the disparity heads' kernels, as the CPU A/B tests do, so that
+    their sigmoids start unsaturated and the loss terms are well-posed."""
+    from cnmnet_tpu_torch.models.layers import DispHead
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, DispHead):
+                m[0].weight.mul_(factor)
+
+
+def train_state(torch, cfg, seed, device):
+    from cnmnet_tpu_torch.train import create_train_state
+
+    state = create_train_state(cfg, seed, device)
+    scale_heads(torch, state.model)
+    return state
+
+
+def terms(metrics):
+    return {k_: float(v) for k_, v in metrics.items() if k_ not in ("viz", "grad_norm")}
+
+
+def rel_l2(a, b):
+    """Relative L2 distance of two ``{name: tensor}`` over every tensor,
+    and the three names that take most of it."""
+    parts = {n: float(((a[n].double() - t.double()) ** 2).sum()) for n, t in b.items()}
+    den = sum(float((t.double() ** 2).sum()) for t in b.values())
+    worst = sorted(parts, key=parts.get, reverse=True)[:3]
+    return (sum(parts.values()) / max(den, 1e-300)) ** 0.5, worst
+
+
+def gradient_errors(metrics_a, mu_a, metrics_b, mu_b):
+    """How far one step's gradient is from another's: the relative
+    difference of ``grad_norm``, and the relative L2 distance over every
+    parameter of Adam's first moment after the step (``opt_state["mu"]``),
+    ``(1 - b1) g`` of the clipped gradient when both started from zero."""
+    ga, gb = float(metrics_a["grad_norm"]), float(metrics_b["grad_norm"])
+    return abs(ga - gb) / max(abs(gb), 1e-30), rel_l2(mu_a, mu_b)[0]
+
+
+def eval_mode_grads(cfg, model, batch):
+    """The full CNM loss's gradient with BatchNorm on its running statistics
+    (as ``tests/test_torch_train.py`` compares it with JAX's), by name."""
+    from cnmnet_tpu_torch.train.loop import loss_and_grads, loss_weights_from_config
+
+    model.eval()
+    try:
+        g, _, _ = loss_and_grads(model, batch, 0, loss_weights_from_config(cfg))
+    finally:
+        model.train()
+    return {n: t for (n, _), t in zip(model.named_parameters(), g)}
+
+
+def median_step_ms(torch, step, state, batch, warmup=3, reps=10):
+    for _ in range(warmup):
+        step(state, batch)
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t)
+    return statistics.median(ts) * 1e3, ts
+
+
+def bf16_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, steps=10):
+    """Phase 9a: the training step in bf16 (f32 parameters, moments and norm
+    statistics; convs in bf16): launches, f32 state, the first step's loss
+    terms against the f32 step from the same weights, the median step time
+    and one trace. Returns (launches per step, median ms, idle share)."""
+    import copy
+
+    from cnmnet_tpu_torch.data.synthetic import train_data_fn
+    from cnmnet_tpu_torch.train import make_train_step
+    from cnmnet_tpu_torch.train.loop import batch_to_device
+
+    t_phase = time.perf_counter()
+    cfg32 = train_config(h, w, planes, k)
+    cfg16 = copy.deepcopy(cfg32)
+    cfg16.model.compute_dtype = "bfloat16"
+    batch = batch_to_device(next(iter(train_data_fn(cfg32)())), device)
+    s16, s32 = train_state(torch, cfg16, 3, device), train_state(torch, cfg32, 3, device)
+    conv = s16.model.depth_net.conv1[0]
+    conv_dtype = conv(batch["images"].new_zeros(1, conv.in_channels, 8, 8)).dtype
+    err_eval, worst_eval = rel_l2(eval_mode_grads(cfg16, s16.model, batch),
+                                  eval_mode_grads(cfg32, s32.model, batch))
+    step16 = make_train_step(cfg16)
+    for c in counters.values():
+        c.launches = 0
+    s16, m16 = step16(s16, batch)
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    s32, m32 = make_train_step(cfg32)(s32, batch)
+    got, want = terms(m16), terms(m32)
+    err = {n: abs(got[n] - want[n]) / max(abs(want[n]), 1e-30) for n in want}
+    worst = max(err, key=err.get)
+    err_gn, err_mu = gradient_errors(m16, s16.opt_state["mu"], m32, s32.opt_state["mu"])
+    floats = [t for t in list(s16.model.state_dict().values())
+              + [v for m in ("mu", "nu") for v in s16.opt_state[m].values()]
+              if t.is_floating_point()]
+    f32_state = all(t.dtype == torch.float32 for t in floats)
+    print(f"bf16 step (batch 2, 3 views, {h}x{w}, {planes} planes, k={k}): launches {launches}; "
+          f"parameters, moments and statistics f32 {f32_state}; loss terms against the f32 step "
+          f"(TF32 off) from the same weights: worst {err[worst]:.3e} ({worst}; tol {BF16_RTOL}, "
+          f"normal terms {BF16_NORMALS_RTOL}); loss bf16 {got['loss']:.5f} f32 {want['loss']:.5f}; "
+          f"a conv's output {conv_dtype}; against the f32 step: grad_norm {err_gn:.3e} (tol "
+          f"{BF16_GRAD_NORM_TOL}), Adam's first moment {err_mu:.3e} relative L2 (train mode: "
+          f"not held); gradient with running statistics {err_eval:.3e} relative L2 (tol "
+          f"{BF16_EVAL_GRAD_TOL}; most from {worst_eval})")
+    assert launches == {"cost_volume": 1, "depth_to_normal": 3}, launches
+    assert f32_state and all(np.isfinite(v) for v in got.values())
+    assert conv_dtype == torch.bfloat16, conv_dtype
+    assert err_gn <= BF16_GRAD_NORM_TOL and err_eval <= BF16_EVAL_GRAD_TOL, (err_gn, err_eval)
+    for n, e in err.items():
+        assert e <= (BF16_NORMALS_RTOL if "normal" in n else BF16_RTOL), (n, e)
+    del s32
+    if device == "cpu":
+        return {n: v for n, v in launches.items()}, None, None
+    ms, ts = median_step_ms(torch, step16, s16, batch, reps=steps)
+    print(f"bf16 train step: median {ms:.3f} ms over {steps} steps after 3 warm-ups, "
+          f"{2e3 / ms:.2f} samples/s, steps {[round(x * 1e3, 3) for x in ts]} (TF32 matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN {torch.backends.cudnn.allow_tf32}) "
+          f"[{smi}]")
+    wall, busy, classes, rows, _ = profile_train_step(torch, step16, s16, batch)
+    idle = None if busy == 0 else 1 - busy / wall
+    if busy:
+        shares = ", ".join(f"{c} {v:.4f} ms" for c, v in sorted(classes.items(),
+                                                                key=lambda x: -x[1]))
+        print(f"profile bf16 train step: wall {wall:.3f} ms under the profiler, device busy "
+              f"{busy:.3f} ms, idle share {idle:.3f}; by class: {shares} [{smi}]")
+        for key, v, count in rows[:8]:
+            print(f"  {v:9.4f} ms {count:4d}x {key[:110]}")
+    else:
+        print("profile bf16 train step: the profiler recorded no device time (not measured)")
+    print(f"phase 9a: {time.perf_counter() - t_phase:.2f} s")
+    return launches, ms, idle
+
+
+REMAT_CONFIGS = (("off", False, -1, False), ("remat_stages=-1", True, -1, False),
+                 ("remat_stages=2", True, 2, False),
+                 ("remat_stages=2 + remat_refiner", True, 2, True))
+# Loss terms and running statistics of a remat step against the plain step
+# on the card: cuDNN may choose other algorithms in the recompute, so
+# equality is not asked for; the first forward is the same code either way.
+# The bf16 step's gradient is not deterministic on the card, and the random
+# net's train-mode gradient magnifies that: two runs of the same plain step
+# gave grad_norm 6.7e-4 and Adam's first moment, (1 - b1) g, 9.8e-3 apart
+# in relative L2. So grad_norm is held to 5e-3 and the moment to 5e-2; a
+# block whose recompute lost its gradient takes that block's share of both.
+REMAT_TOL = 1e-3
+REMAT_GRAD_NORM_TOL = 5e-3
+REMAT_MU_TOL = 5e-2
+
+
+def remat_phase(torch, counters, smi, device="cuda", h=480, w=640, batch_size=4, planes=P, k=K,
+                steps=5):
+    """Phase 9b: the bf16 step at 480x640, batch 4, with remat off, all
+    encoder stages, two, and two plus the RefineNet (the JAX package's
+    native-resolution configuration): peak memory, median step time,
+    launches, and each remat step's loss terms and running statistics
+    against the plain step's. Returns {config: (peak GiB, ms)} and the
+    launches of the last configuration's first step."""
+    from cnmnet_tpu_torch.data.synthetic import train_data_fn
+    from cnmnet_tpu_torch.train import make_train_step
+    from cnmnet_tpu_torch.train.loop import batch_to_device
+
+    t_phase = time.perf_counter()
+    cfg = train_config(h, w, planes, k)
+    cfg.dataset.batch_size = batch_size
+    cfg.dataset.synthetic_size = batch_size
+    batch = batch_to_device(next(iter(train_data_fn(cfg)())), device)
+    result, base = {}, None
+    for name, remat, stages, refiner in REMAT_CONFIGS:
+        cfg.model.compute_dtype = "bfloat16"
+        cfg.model.remat, cfg.model.remat_stages, cfg.model.remat_refiner = remat, stages, refiner
+        state = train_state(torch, cfg, 4, device)
+        step = make_train_step(cfg)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        state, metrics = step(state, batch)
+        launches = {n: c.launches for n, c in counters.items()}
+        assert launches == {"cost_volume": 1, "depth_to_normal": 3}, (name, launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" else float("nan")
+        stats = {n: t.clone() for n, t in state.model.state_dict().items() if "running" in n}
+        got = terms(metrics)
+        assert all(np.isfinite(v) for v in got.values()), (name, got)
+        first = (metrics, {n: t.clone() for n, t in state.opt_state["mu"].items()})
+        if base is None:
+            base = (got, stats, first)
+            err_terms = err_stats = 0.0
+            # The same step again from the same weights: the card's backward
+            # is not deterministic, and the random net's train-mode gradient
+            # magnifies that.
+            again, m_again = step(train_state(torch, cfg, 4, device), batch)
+            err_gn, err_mu = floor = gradient_errors(m_again, again.opt_state["mu"], *first)
+            del again
+        else:
+            err_terms = max(abs(got[n] - v) / max(abs(v), 1e-30) for n, v in base[0].items())
+            err_stats = max(((stats[n] - v).abs() / v.abs().clamp_min(1e-12)).max().item()
+                            for n, v in base[1].items() if n.endswith("running_var"))
+            err_gn, err_mu = gradient_errors(*first, *base[2])
+            assert max(err_terms, err_stats) <= REMAT_TOL, (name, err_terms, err_stats)
+            assert err_gn <= REMAT_GRAD_NORM_TOL and err_mu <= REMAT_MU_TOL, (name, err_gn, err_mu)
+        ms = (median_step_ms(torch, step, state, batch, warmup=2, reps=steps)[0]
+              if device != "cpu" else float("nan"))
+        result[name] = (peak, ms)
+        print(f"remat {name} (bf16, batch {batch_size}, 3 views, {h}x{w}): peak memory "
+              f"{peak:.3f} GiB (max_memory_allocated over the first step, state included), "
+              f"median step {ms:.3f} ms over {steps} after 2 warm-ups; launches {launches}; "
+              f"against remat off: loss terms {err_terms:.3e}, running variances "
+              f"{err_stats:.3e} (tol {REMAT_TOL}), grad_norm {err_gn:.3e} (tol "
+              f"{REMAT_GRAD_NORM_TOL}), Adam's first moment "
+              f"{err_mu:.3e} relative L2 (tol {REMAT_MU_TOL}); for remat off, the same step "
+              f"again [{smi}]")
+        del state, step, first
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    if device != "cpu":
+        # The kernels at this path's shapes: 8 pairs at 480x640 (f32 and the
+        # bf16 writeback that bf16 training asks for), and 4 depth maps.
+        check_cost_volume(torch, h, w, planes, 2 * batch_size, 8)
+        check_normals(torch, *normals_inputs(torch, batch_size, h, w, seed=32), k)
+    print(f"phase 9b: {time.perf_counter() - t_phase:.2f} s; the plain step against itself: "
+          f"grad_norm {floor[0]:.3e}, first moment {floor[1]:.3e}")
+    return result, launches
+
+
+def tiled_phase(torch, counters, smi, device="cuda", sizes=((H, W), (480, 640)), tiles=(2, 4),
+                planes=P, k=K, runs=5):
+    """Phase 9c: the tile axis emulated on one card. For each size and tile
+    count, every row shard's kernel launch with its global row offset (the
+    depth rows with their k // 2 halo rows, as the exchange delivers them;
+    the reference rows against the whole source): the shards together
+    must equal the untiled kernel, and each shard the plain version with
+    the same offset (max abs 0 both). Times each shard's launch against
+    the untiled one, with the shard's bound. Returns the launches and the
+    timing table."""
+    from cnmnet_tpu_torch.kernels.ablate import device_ms
+    from cnmnet_tpu_torch.kernels import cost_volume as kcv
+    from cnmnet_tpu_torch.kernels import normals as kn
+    from cnmnet_tpu_torch.ops import cost_volume as pcv
+    from cnmnet_tpu_torch.ops import normals as pn
+    from cnmnet_tpu_torch.parallel import sharding, tiled_ops
+
+    t_phase = time.perf_counter()
+    total = {n: 0 for n in counters}
+    table = {}
+    halo = k // 2
+    for h, w in sizes:
+        batch = synthetic_batch(2, h, w, 3, seed=50 + h)
+        ref, src, rc, sc = cv_inputs(torch, 4, h, w, 0, batch)  # the train step's 4 pairs
+        depth, kinv = normals_inputs(torch, 2, h, w, seed=60 + h)
+        coefs = kcv.pack_coefs(rc, sc)
+        idepths = pcv.idepth_hypotheses(3.0, planes, ref.device)
+        untiled_n = kn.depth_to_normal_kernel(depth, kinv, k)
+        untiled_cv = kcv.cost_volume_kernel(ref, src, coefs, idepths)
+        n_ms = device_ms(lambda: kn.depth_to_normal_kernel(depth, kinv, k), runs=runs)
+        cv_ms = device_ms(lambda: kcv.cost_volume_kernel(ref, src, coefs, idepths), runs=runs)
+        for tile in tiles:
+            hl = h // tile
+            rows = [slice(i * hl, (i + 1) * hl) for i in range(tile)]
+            edges = [sharding.edge_rows(depth[:, r], halo, -2) for r in rows]
+            depth_halo = [sharding.halo_rows(depth[:, r], edges[i - 1][1] if i else None,
+                                             edges[i + 1][0] if i < tile - 1 else None, halo,
+                                             -2).contiguous() for i, r in enumerate(rows)]
+            refs = [ref[:, r].contiguous() for r in rows]
+            for c in counters.values():
+                c.launches = 0
+            normals = [tiled_ops.depth_to_normal_shard(d, kinv, i * hl, halo, k)
+                       for i, d in enumerate(depth_halo)]
+            volumes = [tiled_ops.cost_volume_shard(r, src, rc, sc, i * hl, 3.0, planes)
+                       for i, r in enumerate(refs)]
+            torch.cuda.synchronize()
+            launches = {n: c.launches for n, c in counters.items()}
+            assert launches == {"cost_volume": tile, "depth_to_normal": tile}, launches
+            for n in total:
+                total[n] += launches[n]
+            err_n = (torch.cat(normals, 1) - untiled_n).abs().max().item()
+            err_cv = (torch.cat(volumes, 1) - untiled_cv.permute(0, 2, 3, 1)).abs().max().item()
+            plain_n = max((normals[i] - pn.depth_to_normal(
+                d, kinv, k, row_offset=i * hl - halo)[0][:, halo:halo + hl]).abs().max().item()
+                for i, d in enumerate(depth_halo))
+            plain_cv = max((volumes[i] - pcv.cost_volume_from_cameras(
+                r, src, rc, sc, 3.0, planes, row_offset=i * hl)).abs().max().item()
+                for i, r in enumerate(refs))
+            print(f"tiled {h}x{w} tile {tile}: shards against the untiled kernel: depth->normal "
+                  f"{err_n:.3e}, cost volume {err_cv:.3e}; each shard against the plain version "
+                  f"with its row offset: {plain_n:.3e}, {plain_cv:.3e} (all must be 0); "
+                  f"launches {launches}")
+            assert err_n == err_cv == plain_n == plain_cv == 0, (err_n, err_cv, plain_n, plain_cv)
+            shard_n = [device_ms(lambda d=d, i=i: kn.depth_to_normal_kernel(
+                d, kinv, k, row_offset=i * hl - halo), runs=runs) for i, d in enumerate(depth_halo)]
+            shard_cv = [device_ms(lambda r=r, i=i: kcv.cost_volume_kernel(
+                r, src, coefs, idepths, row_offset=i * hl), runs=runs) for i, r in enumerate(refs)]
+            # one shard's bounds: its halo-extended depth rows read and its
+            # rows' normals written, the operations on all h + 2 halo rows;
+            # its reference rows and the whole source read, its volume rows
+            # written (f32), the operations of its rows
+            rows_n = hl + 2 * halo
+            bn = bound(2 * rows_n * w * 4 + 2 * 36 + 2 * hl * w * 12,
+                       2 * rows_n * w * normals_flops(k))
+            bcv = bound(4 * hl * w * 12 + 4 * h * w * 12 + 4 * 48 + planes * 4
+                        + 4 * planes * hl * w * 4, 4 * planes * hl * w * CV_FLOPS)
+            table[f"{h}x{w} tile {tile}"] = {
+                "depth_to_normal": {"untiled_ms": n_ms, "shard_ms": shard_n,
+                                    "shard_bound_ms": bn[0], "bound_by": bn[1]},
+                "cost_volume": {"untiled_ms": cv_ms, "shard_ms": shard_cv,
+                                "shard_bound_ms": bcv[0], "bound_by": bcv[1]}}
+            print(f"  times (CUDA events, median of {runs} runs of 10 launches): depth->normal "
+                  f"B=2 k={k} untiled {n_ms:.4f} ms, shards {[round(x, 4) for x in shard_n]} ms "
+                  f"(shard bound {bn[0] * 1e3:.2f} us, {bn[1]}); cost volume 4 pairs f32 "
+                  f"untiled {cv_ms:.4f} ms, shards {[round(x, 4) for x in shard_cv]} ms (shard "
+                  f"bound {bcv[0] * 1e3:.2f} us, {bcv[1]}) [{smi}]")
+    print(f"phase 9c: {time.perf_counter() - t_phase:.2f} s; launches {total}")
+    return total, table
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# One data-parallel step at world size 1 against the plain step (f32, TF32
+# off): the global BatchNorm normalises with its own formula (flax's), so
+# the two agree to rounding, not bit for bit.
+DDP_TOL = 1e-3
+# Adam's first moment after the step (relative L2): 2.4e-2 apart on the
+# card, most of it in the first convs, whose train-mode gradient the random
+# net makes chaotic; a global BatchNorm without a gradient through its
+# statistics gives 6 (CPU, gloo, 32x64).
+DDP_MU_TOL = 0.1
+
+
+def ddp_phase(torch, counters, smi, device="cuda", backend="nccl", h=H, w=W, planes=P, k=K):
+    """Phase 9d: ``torch.distributed`` at world size 1 (NCCL on the card):
+    one ``make_train_step(cfg, make_mesh())`` step, which runs the global
+    BatchNorm, the global loss reductions and the gradient all-reduce over
+    the one-rank group, against the plain step from the same weights; then
+    ``cli train`` with ``parallel.coordinator_address``: 2 steps into a
+    checkpoint directory, and a resume to step 3. Returns the launches of
+    the data-parallel step and of the two CLI runs."""
+    import copy
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from cnmnet_tpu_torch.data.synthetic import train_data_fn
+    from cnmnet_tpu_torch.parallel.mesh import make_mesh
+    from cnmnet_tpu_torch.train import make_train_step
+    from cnmnet_tpu_torch.train.loop import batch_to_device
+
+    t_phase = time.perf_counter()
+    cfg = train_config(h, w, planes, k)
+    batch = batch_to_device(next(iter(train_data_fn(cfg)())), device)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        a = train_state(torch, cfg, 5, device)
+        b = copy.deepcopy(a)
+        for c in counters.values():
+            c.launches = 0
+        a, ma = make_train_step(cfg, mesh)(a, batch)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        backend_used = dist.get_backend(mesh.data_group)
+    finally:
+        dist.destroy_process_group()
+    c = copy.deepcopy(b)
+    b, mb = make_train_step(cfg)(b, batch)
+    c, mc = make_train_step(cfg)(c, batch)
+    floor = gradient_errors(mc, c.opt_state["mu"], mb, b.opt_state["mu"])
+    del c
+    got, want = terms(ma), terms(mb)
+    err_gn = gradient_errors(ma, a.opt_state["mu"], mb, b.opt_state["mu"])[0]
+    err_mu, worst_mu = rel_l2(a.opt_state["mu"], b.opt_state["mu"])
+    err_terms = max(abs(got[n] - v) / max(abs(v), 1e-30) for n, v in want.items())
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    err_var = max(((sa[n] - sb[n]).abs() / sb[n].abs()).max().item() for n in sb
+                  if n.endswith("running_var"))
+    err_mean = max(((sa[n] - sb[n]).abs() / sb[n.replace("running_mean", "running_var")].sqrt())
+                   .max().item() for n in sb if n.endswith("running_mean"))
+    tracked = all(torch.equal(sa[n], sb[n]) for n in sb if n.endswith("num_batches_tracked"))
+    print(f"data-parallel step at world size 1 ({backend_used}, mesh {mesh.shape}): launches "
+          f"{launches}; against the plain step: loss terms {err_terms:.3e}, running variances "
+          f"{err_var:.3e}, running means {err_mean:.3e} of the running std, grad_norm "
+          f"{err_gn:.3e} (tol {DDP_TOL}), Adam's first moment {err_mu:.3e} relative L2 (most "
+          f"from {worst_mu}; tol {DDP_MU_TOL}), num_batches_tracked equal {tracked}; the plain "
+          f"step against itself: grad_norm {floor[0]:.3e}, first moment {floor[1]:.3e}")
+    assert launches == {"cost_volume": 1, "depth_to_normal": 3}, launches
+    assert max(err_terms, err_var, err_mean, err_gn) <= DDP_TOL and tracked
+    assert err_mu <= DDP_MU_TOL, err_mu
+    del a, b
+
+    cli_launches = {n: 0 for n in counters}
+    with tempfile.TemporaryDirectory(prefix="cnm_ddp_") as tmp:
+        ckpt = f"{tmp}/ckpt"
+        argv = ["--synthetic", "--device", device, f"dataset.image_height={h}",
+                f"dataset.image_width={w}", f"model.num_planes={planes}", f"model.k_size={k}",
+                "dataset.batch_size=2", "train.ckpt_interval=100", "train.ckpt_keep=1",
+                "parallel.num_processes=1", "parallel.process_id=0",
+                f"train.checkpoint_dir={ckpt}", f"train.log_dir={tmp}/logs"]
+        for max_steps, extra, want_steps, want_dirs in (
+                (2, [], 2, ["2"]), (3, [f"train.resume_dir={ckpt}"], 1, ["3"])):
+            address = f"parallel.coordinator_address=127.0.0.1:{_free_port()}"
+            launches_cli, seconds, lines = run_cli(
+                torch, counters, smi, ["train", "--max-steps", str(max_steps)] + argv
+                + [address] + extra, device)
+            assert launches_cli == {"cost_volume": want_steps,
+                                    "depth_to_normal": 3 * want_steps}, launches_cli
+            assert sorted(os.listdir(ckpt)) == want_dirs, os.listdir(ckpt)
+            assert lines[-1] == f"done: step {max_steps}", lines[-1]
+            assert not dist.is_initialized()
+            for n in cli_launches:
+                cli_launches[n] += launches_cli[n]
+    print(f"cli train with a coordinator address (world size 1): 2 steps, checkpoint 2, resumed "
+          f"to 3; launches {cli_launches}")
+    print(f"phase 9d: {time.perf_counter() - t_phase:.2f} s [{smi}]")
+    return launches, cli_launches
+
+
 def main() -> int:
     import torch
 
@@ -1661,26 +2135,36 @@ def main() -> int:
     launches_batcher, load = batcher_phase(torch, counters, smi, session, weights, u8, cams)
     launches_cli, cli_s = cli_phase(torch, counters, smi)
 
+    # 9. training at scale: bf16, remat, the tiled kernels, data parallel
+    launches_bf16, bf16_ms, bf16_idle = bf16_phase(torch, counters, smi)
+    remat, launches_remat = remat_phase(torch, counters, smi)
+    launches_tiled, tiled = tiled_phase(torch, counters, smi)
+    launches_ddp, launches_ddp_cli = ddp_phase(torch, counters, smi)
+
+    def more(name):
+        """The kernel's launches on the paths after phase 3, and its total."""
+        paths = {"launches_train_step": per_step[name], "launches_eval": launches_eval[name],
+                 "launches_batcher": launches_batcher[name], "launches_cli": launches_cli[name],
+                 "launches_bf16_step": launches_bf16[name],
+                 "launches_remat_step": launches_remat[name],
+                 "launches_tiled": launches_tiled[name], "launches_ddp_step": launches_ddp[name],
+                 "launches_ddp_cli": launches_ddp_cli[name]}
+        return {**paths, "launches_total": launches[name] + sum(paths.values()),
+                "tiled": {shape: t[name] for shape, t in tiled.items()}}
+
     kernels = [
         {"name": "cost_volume", "route": "cuda",
          "source": "cnmnet_tpu_torch/kernels/csrc/cost_volume.cu",
          "replaces": "cnmnet_tpu/kernels/cost_volume_pallas.py:417",
          "launches": launches["cost_volume"], "max_abs_err": cv_err, "ms": cv_ms,
          "plain_ms": cv_plain_ms, "bound_ms": cv_bound, "bound_by": cv_by, "library_ms": None,
-         "launches_train_step": per_step["cost_volume"],
-         "launches_eval": launches_eval["cost_volume"],
-         "launches_batcher": launches_batcher["cost_volume"],
-         "launches_cli": launches_cli["cost_volume"]},
+         **more("cost_volume")},
         {"name": "depth_to_normal", "route": "cuda",
          "source": "cnmnet_tpu_torch/kernels/csrc/depth_to_normal.cu",
          "replaces": "cnmnet_tpu/kernels/normals_pallas.py:168",
          "launches": launches["depth_to_normal"], "max_abs_err": nrm_err, "ms": rows[1][0],
          "plain_ms": rows[1][1], "bound_ms": rows[1][2], "bound_by": rows[1][3],
-         "library_ms": None, "launches_train_step": per_step["depth_to_normal"],
-         "launches_eval": launches_eval["depth_to_normal"],
-         "launches_batcher": launches_batcher["depth_to_normal"],
-         "launches_cli": launches_cli["depth_to_normal"],
-         "train_shape_ms": nt["kernel"], "train_shape_plain_ms": nt["plain"],
+         "library_ms": None, **more("depth_to_normal"), "train_shape_ms": nt["kernel"], "train_shape_plain_ms": nt["plain"],
          "train_shape_bound_ms": nt["bound"], "backward": "plain autograd",
          "grad_max_abs_err": nrm_grad_err},
     ]
@@ -1693,7 +2177,9 @@ def main() -> int:
           f"ms, mean batch {load['mean_batch']:.3f}; over {load['long']['requests']} requests "
           f"{load['long']['requests_per_s']:.2f} requests/s, p99 {load['long']['p99_ms']:.3f} ms "
           f"({load['long']['p99_after_first_ms']:.3f} ms without the first round); "
-          f"cli seconds { {n: round(v, 3) for n, v in cli_s.items()} }")
+          f"cli seconds { {n: round(v, 3) for n, v in cli_s.items()} }; bf16 train step "
+          f"{bf16_ms:.3f} ms (idle {bf16_idle}); remat at 480x640 batch 4 (GiB, ms) "
+          f"{ {n: (round(g, 3), round(t, 3)) for n, (g, t) in remat.items()} }")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

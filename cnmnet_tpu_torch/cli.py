@@ -17,9 +17,25 @@ JAX CLI reads ``JAX_PLATFORMS``. Without a card, ``cuda`` raises
 cpu`` for a CPU run. ``cal-metrics`` and ``export-tb`` compute on the host
 and have no ``--device``.
 
-One device is used. ``eval`` runs unsharded, as the JAX CLI does on one
-device; ``--eval-tile`` and a set ``parallel.coordinator_address`` wait for
-the distribution slice (slice 5), and the latter raises. The ``bench``,
+``train`` runs on several processes, one card each, when
+``parallel.coordinator_address`` is set (``cnmnet_tpu/cli.py:139-183``):
+
+    python -m cnmnet_tpu_torch.cli train parallel.coordinator_address=host:port \
+        parallel.num_processes=N parallel.process_id=i ...
+
+Each process calls ``torch.distributed.init_process_group`` on
+``tcp://host:port`` (NCCL on cards, gloo on the CPU; one already
+initialised is used as it is) and takes ``cuda:{LOCAL_RANK}``, or ``cuda:{rank
+% device count}``, then trains its data shard of a ``data x 1`` mesh
+(``PrefetchLoader(shard_index=rank, shard_count=N)``; ``--synthetic`` gives
+every process the same scenes, as in JAX). All processes share one
+checkpoint directory, checked at start: the first writes, the others wait
+at a barrier, and every process resumes from the same step. A
+``parallel.tile_axis`` above 1 raises ``NotImplementedError``: the tile axis
+through the conv stack is a ROADMAP item.
+
+``eval`` runs on one device, unsharded, as the JAX CLI does on one device;
+``--eval-tile`` waits for the same tile-axis item. The ``bench``,
 ``prep-cameras``, ``prep-planes``, ``prep-list`` and ``report`` commands
 are not here: the first waits for the port's benchmark, the others for the
 offline tools (slice 6).
@@ -62,8 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--frame-batch", type=int, default=1,
                    help="frames per batched forward")
     e.add_argument("--eval-tile", type=int, default=1,
-                   help="row tiles per frame over several devices (distribution slice; "
-                        "one device runs unsharded)")
+                   help="row tiles per frame over several devices (waits for the tile "
+                        "axis through the conv stack; one device runs unsharded)")
     e.add_argument("overrides", nargs="*")
 
     cm = sub.add_parser("cal-metrics",
@@ -115,7 +131,8 @@ def _restored_model(cfg: Config, checkpoint):
     import torch
 
     from cnmnet_tpu_torch.models.layers import init_weights
-    from cnmnet_tpu_torch.serve import build_model, restore_weights
+    from cnmnet_tpu_torch.serve import restore_weights
+    from cnmnet_tpu_torch.train.state import build_model
 
     model = build_model(cfg)
     init_weights(model, torch.Generator().manual_seed(0))
@@ -135,17 +152,65 @@ def cmd_train(args) -> int:
         cfg.train.use_normal_loss = False
     if args.synthetic:
         cfg.dataset.synthetic = True
-    if cfg.parallel.coordinator_address:
+    if cfg.parallel.tile_axis > 1:
         raise NotImplementedError(
-            "parallel.coordinator_address: multi-process training comes with the port's "
-            "distribution slice (slice 5)")
+            f"parallel.tile_axis={cfg.parallel.tile_axis}: row-sharding the conv stack is not "
+            "ported (ROADMAP, Queue 1: the tile axis through the conv stack)")
 
-    from cnmnet_tpu_torch.obs.logger import MetricLogger
     from cnmnet_tpu_torch.serve import resolve_device
+
+    device = resolve_device(args.device)
+    mesh, joined = None, False
+    if cfg.parallel.coordinator_address:
+        device, mesh, joined = _join_processes(cfg, device)
+    try:
+        return _train(cfg, args, device, mesh)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _join_processes(cfg: Config, device):
+    """Initialise the process group of ``cfg.parallel`` (unless one is),
+    pick this process's card, and lay the ranks out as a data mesh; returns
+    ``(device, mesh, whether this call initialised the group)``."""
+    import torch
+    import torch.distributed as dist
+
+    from cnmnet_tpu_torch.parallel.mesh import make_mesh
+
+    p = cfg.parallel
+    joined = not dist.is_initialized()
+    rank = p.process_id if joined else dist.get_rank()
+    if device.type == "cuda" and device.index is None:
+        local = os.environ.get("LOCAL_RANK")
+        device = torch.device("cuda", int(local) if local is not None
+                              else rank % torch.cuda.device_count())
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if joined:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                init_method=f"tcp://{p.coordinator_address}",
+                                world_size=p.num_processes, rank=p.process_id)
+    if dist.get_world_size() != p.num_processes or rank != p.process_id:
+        raise ValueError(f"process group of {dist.get_world_size()} with rank {dist.get_rank()} "
+                         f"!= parallel.num_processes={p.num_processes}, "
+                         f"process_id={p.process_id}")
+    paths = [None] * dist.get_world_size()
+    dist.all_gather_object(paths, os.path.abspath(cfg.train.checkpoint_dir))
+    if len(set(paths)) != 1:
+        raise ValueError("train.checkpoint_dir must be one shared path across processes: "
+                         "the first process writes every checkpoint and all resume from it")
+    return device, make_mesh(data=p.data_axis, tile=1), joined
+
+
+def _train(cfg: Config, args, device, mesh) -> int:
+    from cnmnet_tpu_torch.obs.logger import MetricLogger
     from cnmnet_tpu_torch.train.checkpoint import CheckpointManager
     from cnmnet_tpu_torch.train.loop import train_loop
 
-    device = resolve_device(args.device)
     logger = MetricLogger(cfg.train.log_dir, config=to_dict(cfg))
     checkpointer = CheckpointManager(cfg.train.checkpoint_dir, max_to_keep=cfg.train.ckpt_keep,
                                      device=device)
@@ -169,8 +234,10 @@ def cmd_train(args) -> int:
             max_planes=cfg.dataset.max_planes,
             wire_dtype=cfg.dataset.wire_dtype,
         )
+        shard = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
         loader = PrefetchLoader(ds, batch_size=cfg.dataset.batch_size,
-                                num_workers=cfg.dataset.num_workers, seed=cfg.train.seed)
+                                num_workers=cfg.dataset.num_workers, seed=cfg.train.seed,
+                                shard_index=shard[0], shard_count=shard[1])
 
         def data_iter():
             return iter(loader)
@@ -185,7 +252,7 @@ def cmd_train(args) -> int:
 
     try:
         state = train_loop(cfg, data_iter, logger=logger, checkpointer=checkpointer,
-                           max_steps=args.max_steps, device=device)
+                           max_steps=args.max_steps, device=device, mesh=mesh)
     finally:
         logger.close()
     print(f"done: step {state.step}")
@@ -200,8 +267,8 @@ def cmd_eval(args) -> int:
     device = resolve_device(args.device)
     num_sources = {2: 1, 3: 2, 5: 4, 7: 6}[args.views]
     if args.eval_tile > 1:
-        print(f"eval-tile={args.eval_tile} needs several devices (distribution slice); "
-              "running unsharded")
+        print(f"eval-tile={args.eval_tile} needs the tile axis through the conv stack "
+              "(ROADMAP, Queue 1); running unsharded")
     model = _restored_model(cfg, args.checkpoint)
     forward = make_eval_forward(model, k_size=cfg.model.k_size, device=device,
                                 compute_dtype=cfg.model.compute_dtype)

@@ -1,14 +1,17 @@
 """Typed experiment configuration (the dataclasses of ``cnmnet_tpu.config``).
 
 Same sections, fields and defaults, so a configuration means the same thing
-to both packages. Two fields read differently here:
+to both packages. ``ModelConfig.cv_backend`` reads differently here: it
+selects the kernel backend for every op that has one, ``None`` (auto: the
+CUDA kernel for CUDA tensors, the plain PyTorch version for CPU tensors),
+``"torch"`` or ``"cuda"``.
 
-* ``ModelConfig.cv_backend`` selects the kernel backend for every op that
-  has one: ``None`` (auto: the CUDA kernel for CUDA tensors, the plain
-  PyTorch version for CPU tensors), ``"torch"`` or ``"cuda"``;
-* ``remat``, ``remat_stages``, ``remat_refiner`` and ``stride2`` are
-  accepted and ignored: they select TPU lowerings with identical parameters
-  and outputs, and the port runs the plain form.
+``remat``, ``remat_stages``, ``remat_refiner`` and ``stride2`` mean what
+they mean to the JAX package and are checked as it checks them
+(``train/state.py:build_model``): remat recomputes DepthNet's first
+``remat_stages`` encoder stages (and RefineNet with ``remat_refiner``) in
+the backward, through ``torch.utils.checkpoint``; ``stride2`` is one of
+``conv``, ``s2d`` and ``psg``, and all three build the same strided conv.
 
 ``load_config(path)`` reads a YAML file with the same nesting (PyYAML is
 imported only there, and only for a path: the card's machine may not have
@@ -59,10 +62,10 @@ class ModelConfig:
     norm: str = "batch"
     compute_dtype: str = "float32"
     use_refiner: bool = True
-    remat: bool = False  # ignored (TPU lowering)
-    remat_stages: int = -1  # ignored (TPU lowering)
-    remat_refiner: bool = False  # ignored (TPU lowering)
-    stride2: str = "conv"  # ignored (TPU lowering)
+    remat: bool = False  # recompute encoder stages in the backward
+    remat_stages: int = -1  # with remat: -1 = all five, 1-5 = from the input side
+    remat_refiner: bool = False  # recompute RefineNet's blocks in the backward
+    stride2: str = "conv"  # conv | s2d | psg: one strided conv in the port
     cv_backend: Optional[str] = None  # None = auto, "torch", "cuda"
     sampling: str = "exact"  # "torch": the reference's grid_sample convention
 

@@ -22,8 +22,8 @@ per-frame compute (cost volumes + DepthNet + RefineNet + depth->normal)
 runs on the device through ``make_eval_forward``, with both CUDA kernels
 on CUDA tensors; loading, metrics and artifacts are numpy on the host
 (``data/imageio`` in place of cv2 and PIL). The JAX function's ``mesh``
-argument is not taken: mesh eval comes with distribution (ROADMAP,
-slice 5).
+argument is not taken: mesh eval waits for its ROADMAP item (Queue 1,
+mesh serving and eval).
 """
 
 from __future__ import annotations

@@ -73,9 +73,12 @@ def relative_pose(ref: Camera, src: Camera) -> torch.Tensor:
     return _mm(src.extrinsic, invert_se3(ref.extrinsic))
 
 
-def pixel_grid(height: int, width: int, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Homogeneous pixel coordinates ``[3, H, W]``: (u, v, 1) per pixel."""
-    v = torch.arange(height, dtype=dtype, device=device)[:, None].expand(height, width)
+def pixel_grid(height: int, width: int, dtype=torch.float32, device=None,
+               row_offset: int = 0) -> torch.Tensor:
+    """Homogeneous pixel coordinates ``[3, H, W]``: (u, v, 1) per pixel, with
+    ``v`` counted from global row ``row_offset`` (a row shard's rows)."""
+    v = torch.arange(row_offset, row_offset + height, dtype=dtype,
+                     device=device)[:, None].expand(height, width)
     u = torch.arange(width, dtype=dtype, device=device)[None, :].expand(height, width)
     return torch.stack([u, v, torch.ones_like(u)], 0)
 
@@ -91,16 +94,17 @@ def plane_sweep_homography(ref: Camera, src: Camera):
     return KRKi, KT
 
 
-def plane_sweep_terms(ref: Camera, src: Camera, height: int, width: int):
+def plane_sweep_terms(ref: Camera, src: Camera, height: int, width: int, row_offset: int = 0):
     """Per-pixel homography terms: ``KRKiUV`` ``[..., 3, H*W]`` (``K_s R
-    K_r^-1 (u, v, 1)`` for every pixel) and ``KT`` ``[..., 3, 1]``.
+    K_r^-1 (u, v, 1)`` for every pixel of the ``height`` rows from global
+    row ``row_offset`` on) and ``KT`` ``[..., 3, 1]``.
 
     ``KRKiUV`` is evaluated as ``(k0 * u + k1 * v) + k2`` per row, each step
     rounded to f32: the cost-volume kernel repeats exactly these roundings,
     so both produce the same sampling coordinates.
     """
     KRKi, KT = plane_sweep_homography(ref, src)
-    uv = pixel_grid(height, width, KRKi.dtype, KRKi.device).reshape(3, height * width)
+    uv = pixel_grid(height, width, KRKi.dtype, KRKi.device, row_offset).reshape(3, height * width)
     k = KRKi[..., None]  # [..., 3, 3, 1]
     KRKiUV = k[..., 0, :] * uv[0] + k[..., 1, :] * uv[1] + k[..., 2, :]
     return KRKiUV, KT

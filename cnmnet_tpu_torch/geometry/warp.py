@@ -54,18 +54,20 @@ def bilinear_sample(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> to
     return out.reshape(out_shape)
 
 
-def pixel2cam(depth: torch.Tensor, intrinsics_inv: torch.Tensor) -> torch.Tensor:
+def pixel2cam(depth: torch.Tensor, intrinsics_inv: torch.Tensor,
+              row_offset: int = 0) -> torch.Tensor:
     """Camera-frame points ``K^-1 (u, v, 1)^T * d``.
 
     Args:
-      depth: ``[B, H, W]``.
+      depth: ``[B, H, W]``, the image's rows from global row ``row_offset``
+        on (0: the whole image).
       intrinsics_inv: ``[B, 3, 3]`` (the full matrix is used).
 
     Returns:
       ``[B, H, W, 3]``.
     """
     _, h, w = depth.shape
-    u, v, _ = pixel_grid(h, w, depth.dtype, depth.device)
+    u, v, _ = pixel_grid(h, w, depth.dtype, depth.device, row_offset)
     k = intrinsics_inv[:, :, :, None, None]  # [B, 3, 3, 1, 1]
     rays = k[:, :, 0] * u + k[:, :, 1] * v + k[:, :, 2]  # [B, 3, H, W]
     return rays.permute(0, 2, 3, 1) * depth[..., None]

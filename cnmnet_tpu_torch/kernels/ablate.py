@@ -161,7 +161,7 @@ def time_cost_volume(libs: dict) -> dict:
             fn.argtypes, fn.restype = kcv._ARGTYPES, ctypes.c_int
             out = torch.zeros((B, P, H, W), dtype=torch.bfloat16, device="cuda")
             args = (ref.data_ptr(), src.data_ptr(), scratch.data_ptr(), coefs.data_ptr(),
-                    idepths.data_ptr(), out.data_ptr(), B, H, W, P, 1, stream)
+                    idepths.data_ptr(), out.data_ptr(), B, H, W, P, H, 0, 1, stream)
             build.check(fn(*args), f"cost volume variant {name}")
             result[name][f"{B}_pairs_us"] = device_ms(lambda: fn(*args)) * 1e3
             outs[name] = out
@@ -182,7 +182,7 @@ def time_depth_to_normal(libs: dict) -> dict:
             fn = lib.cnm_depth_to_normal
             fn.argtypes, fn.restype = kn._ARGTYPES, ctypes.c_int
             out = torch.empty((B, H, W, 3), device="cuda")
-            args = (depth.data_ptr(), kinv.data_ptr(), out.data_ptr(), B, H, W, K,
+            args = (depth.data_ptr(), kinv.data_ptr(), out.data_ptr(), B, H, W, K, 0,
                     0.0, 10.0, 1e-5, 1e-5, stream)
             build.check(fn(*args), f"depth->normal variant {name}")
             result[name][f"B{B}_us"] = device_ms(lambda: fn(*args)) * 1e3

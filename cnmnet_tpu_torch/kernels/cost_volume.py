@@ -10,6 +10,11 @@ The kernel reads the source images from a bordered four-channel copy that
 its own pack launch writes into a scratch buffer: ``bordered_source`` is
 that copy in plain PyTorch, and ``bordered_shape`` its shape.
 
+A row shard of the tiled op (``parallel/tiled_ops.py``) passes its ``H``
+reference rows with ``row_offset``, the global row of the first, against
+the whole source of ``Hs`` rows; the untiled call is ``row_offset=0`` and
+``Hs = H``.
+
 ``cost_volume_kernel.launches`` counts the kernel's launches.
 """
 
@@ -27,7 +32,7 @@ from cnmnet_tpu_torch.ops import cost_volume as plain
 
 BORDER = 2  # zero pixels around the packed source
 INDEX_LIMIT = 2**31  # the kernel indexes in 32 bits
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def pack_coefs(ref_cam: Camera, src_cam: Camera) -> torch.Tensor:
@@ -52,11 +57,13 @@ def bordered_source(src_images: torch.Tensor) -> torch.Tensor:
     return F.pad(src_images.float(), (0, 1, b, b, b, b))
 
 
-def check_sizes(B: int, H: int, W: int, P: int) -> None:
-    """Refuse shapes whose volume or packed source (larger than the images)
-    reaches 2^31 elements: the kernel's index arithmetic is 32-bit."""
-    for name, n in (("volume", B * P * H * W),
-                    ("packed source", math.prod(bordered_shape(B, H, W)))):
+def check_sizes(B: int, H: int, W: int, P: int, Hs: int = None) -> None:
+    """Refuse shapes whose volume, reference rows or packed source (``Hs``
+    rows, ``H`` by default; larger than the source) reach 2^31 elements:
+    the kernel's index arithmetic is 32-bit."""
+    Hs = H if Hs is None else Hs
+    for name, n in (("volume", B * P * H * W), ("reference", B * H * W * 3),
+                    ("packed source", math.prod(bordered_shape(B, Hs, W)))):
         if n >= INDEX_LIMIT:
             raise ValueError(f"cost volume {B}x{P}x{H}x{W}: its {name} has {n} elements, "
                              f"at or above the kernel's 32-bit limit of {INDEX_LIMIT}")
@@ -68,18 +75,24 @@ def cost_volume_kernel(
     coefs: torch.Tensor,
     idepths: torch.Tensor,
     out_dtype: torch.dtype = torch.float32,
+    row_offset: int = 0,
 ) -> torch.Tensor:
-    """Launch the kernel: ``[B, H, W, 3]`` f32 images, ``[B, 12]``
+    """Launch the kernel: ``[B, H, W, 3]`` f32 reference rows from global
+    row ``row_offset`` on, the ``[B, Hs, W, 3]`` f32 source, ``[B, 12]``
     coefficients and the ``[P]`` plane table, all contiguous on one CUDA
     device -> ``[B, P, H, W]`` in ``out_dtype`` (f32 or bf16; the cost
     accumulates in f32 either way). Does not synchronise."""
     if not ref_images.is_cuda:
         raise ValueError("cost_volume_kernel takes CUDA tensors")
     B, H, W, C = ref_images.shape
+    Hs = src_images.shape[1] if src_images.dim() == 4 else H
     P = idepths.shape[0]
+    if row_offset < 0 or row_offset + H > Hs:
+        raise ValueError(f"rows {row_offset}..{row_offset + H - 1} lie outside the source's "
+                         f"{Hs} rows")
     for name, t, shape in (
         ("ref_images", ref_images, (B, H, W, 3)),
-        ("src_images", src_images, (B, H, W, 3)),
+        ("src_images", src_images, (B, Hs, W, 3)),
         ("coefs", coefs, (B, 12)),
         ("idepths", idepths, (P,)),
     ):
@@ -89,17 +102,17 @@ def cost_volume_kernel(
             raise ValueError(f"{name} must be contiguous on {ref_images.device}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    check_sizes(B, H, W, P)
+    check_sizes(B, H, W, P, Hs)
     lib = build.load("cost_volume")
     fn = lib.cnm_cost_volume
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    scratch = torch.empty(bordered_shape(B, H, W), dtype=torch.float32, device=ref_images.device)
+    scratch = torch.empty(bordered_shape(B, Hs, W), dtype=torch.float32, device=ref_images.device)
     out = torch.empty((B, P, H, W), dtype=out_dtype, device=ref_images.device)
     with torch.cuda.device(ref_images.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(
             ref_images.data_ptr(), src_images.data_ptr(), scratch.data_ptr(), coefs.data_ptr(),
-            idepths.data_ptr(), out.data_ptr(), B, H, W, P,
+            idepths.data_ptr(), out.data_ptr(), B, H, W, P, Hs, row_offset,
             int(out_dtype == torch.bfloat16), stream,
         )
     build.check(status, "cnm_cost_volume")
@@ -118,19 +131,20 @@ def cost_volume(
     idepth_scale: float = 3.0,
     num_planes: int = 64,
     out_dtype: torch.dtype = torch.float32,
+    row_offset: int = 0,
 ) -> torch.Tensor:
-    """Batched cost volume ``[B, H, W, P]``: a view of the plane-major
-    ``[B, P, H, W]`` result. CPU tensors take the plain version, CUDA
-    tensors the kernel."""
+    """Batched cost volume ``[B, H, W, P]`` of the ``H`` reference rows from
+    global row ``row_offset`` on: a view of the plane-major ``[B, P, H, W]``
+    result. CPU tensors take the plain version, CUDA tensors the kernel."""
     if not ref_images.is_cuda:
         vol = plain.cost_volume_from_cameras(
-            ref_images, src_images, ref_cam, src_cam, idepth_scale, num_planes
+            ref_images, src_images, ref_cam, src_cam, idepth_scale, num_planes, row_offset
         )
         return vol.to(out_dtype)
     with torch.no_grad():
         idepths = plain.idepth_hypotheses(idepth_scale, num_planes, ref_images.device)
         vol = cost_volume_kernel(
             ref_images.float().contiguous(), src_images.float().contiguous(),
-            pack_coefs(ref_cam, src_cam), idepths, out_dtype,
+            pack_coefs(ref_cam, src_cam), idepths, out_dtype, row_offset,
         )
     return vol.permute(0, 2, 3, 1)

@@ -6,12 +6,20 @@
 // general gather; a GPU gathers natively, so this is a direct bilinear
 // kernel with the semantics of the plain version, ops/cost_volume.py.
 //
-// out[b, p, y, x] = sum_c | bilinear(src_b, warp_p(x, y))_c - ref_b[y, x, c] |
-//   warp_p(x, y) = (X / (Z + eps), Y / (Z + eps)),
-//   (X, Y, Z)    = KRKi_b (x, y, 1) + KT_b * idepth[p],
+// out[b, p, y, x] = sum_c | bilinear(src_b, warp_p(x, v))_c - ref_b[y, x, c] |
+//   v            = y + row_offset,
+//   warp_p(x, v) = (X / (Z + eps), Y / (Z + eps)),
+//   (X, Y, Z)    = KRKi_b (x, v, 1) + KT_b * idepth[p],
 // with the plain version's guard (|Z + eps| < eps -> eps), its clip of the
-// coordinates to +-100 max(H, W) before the float->int conversion, and taps
-// outside [0, W-1] x [0, H-1] counted as zero. No behind-camera mask.
+// coordinates to +-100 max(Hs, W) before the float->int conversion, and taps
+// outside [0, W-1] x [0, Hs-1] counted as zero. No behind-camera mask.
+//
+// The reference rows and the output are H rows from global row row_offset
+// of an image whose source has Hs rows: a row shard of the tiled cost
+// volume (parallel/tiled_ops.py) passes its rows, their offset and the
+// gathered source; the untiled call passes row_offset = 0 and Hs = H. Every
+// cost depends on its global pixel and the source alone, so a shard's rows
+// equal the untiled volume's rows bit for bit.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32) at the serving shape,
 // 2 pairs x 64 planes x 192 x 256 = 6.29 M outputs: the writes are 12.6 MB
@@ -116,7 +124,7 @@ struct Tap {
 };
 
 __device__ __forceinline__ Tap locate(const Pixel& px, float tx, float ty, float tz, float id,
-                                      float bound, int Wp, int H, int W) {
+                                      float bound, int Wp, int Hs, int W) {
   const float eps = 1e-6f;
   const float X = __fadd_rn(px.hx, __fmul_rn(tx, id));
   const float Y = __fadd_rn(px.hy, __fmul_rn(ty, id));
@@ -128,7 +136,7 @@ __device__ __forceinline__ Tap locate(const Pixel& px, float tx, float ty, float
   const float x0f = floorf(x);
   const float y0f = floorf(y);
   const int x0 = min(max(static_cast<int>(x0f), -kPad), W);
-  const int y0 = min(max(static_cast<int>(y0f), -kPad), H);
+  const int y0 = min(max(static_cast<int>(y0f), -kPad), Hs);
   return {static_cast<unsigned>((y0 + kPad) * Wp + x0 + kPad), __fsub_rn(x, x0f),
           __fsub_rn(y, y0f)};
 }
@@ -197,14 +205,14 @@ template <int N, typename OutT>
 __device__ __forceinline__ void plane_costs(OutT* __restrict__ out, const float4* __restrict__ sb,
                                             const float* __restrict__ idepth,
                                             const Pixel (&px)[kPx], float tx, float ty,
-                                            float tz, float bound, int p0, int Wp, int H,
+                                            float tz, float bound, int p0, int Wp, int Hs,
                                             int W, int HW, const Row& row) {
   Tap t[N][kPx];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     const float id = __ldg(idepth + p0 + j);
 #pragma unroll
-    for (int k = 0; k < kPx; ++k) t[j][k] = locate(px[k], tx, ty, tz, id, bound, Wp, H, W);
+    for (int k = 0; k < kPx; ++k) t[j][k] = locate(px[k], tx, ty, tz, id, bound, Wp, Hs, W);
   }
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -220,13 +228,13 @@ template <typename OutT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) cost_volume_kernel(
     const float* __restrict__ ref, const float4* __restrict__ bsrc,
     const float* __restrict__ coef, const float* __restrict__ idepth,
-    OutT* __restrict__ out, int B, int H, int W, int P) {
+    OutT* __restrict__ out, int B, int H, int W, int P, int Hs, int row_offset) {
   const int chunks = (W + kChunk - 1) / kChunk;
   const int groups = (P + kPlanes - 1) / kPlanes;
   const int items = B * H * chunks * groups;
   const int Wp = W + 2 * kPad;
   const int HW = H * W;
-  const float bound = 100.0f * static_cast<float>(max(H, W));
+  const float bound = 100.0f * static_cast<float>(max(Hs, W));
 
   // plane groups vary fastest: the blocks resident at one time work on
   // neighbouring rows of one pair, whose source bands overlap in L2
@@ -247,7 +255,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) cost_volume_kernel(
 
     const float* c = coef + 12 * b;  // KRKi row-major (9), then KT (3)
     const float tx = __ldg(c + 9), ty = __ldg(c + 10), tz = __ldg(c + 11);
-    const float v = static_cast<float>(y);
+    const float v = static_cast<float>(y + row_offset);
     Pixel px[kPx];
 #pragma unroll
     for (int k = 0; k < kPx; ++k) {
@@ -267,13 +275,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) cost_volume_kernel(
     row.first = x < W;
     row.second = x + 1 < W;
     row.packed = row.second && (W % 2 == 0);
-    const float4* sb = bsrc + b * (H + 2 * kPad) * Wp;
+    const float4* sb = bsrc + b * (Hs + 2 * kPad) * Wp;
     const int p0 = g * kPlanes;
     if (p0 + kPlanes <= P) {
-      plane_costs<kPlanes>(out, sb, idepth, px, tx, ty, tz, bound, p0, Wp, H, W, HW, row);
+      plane_costs<kPlanes>(out, sb, idepth, px, tx, ty, tz, bound, p0, Wp, Hs, W, HW, row);
     } else {
       for (int p = p0; p < P; ++p)
-        plane_costs<1>(out, sb, idepth, px, tx, ty, tz, bound, p, Wp, H, W, HW, row);
+        plane_costs<1>(out, sb, idepth, px, tx, ty, tz, bound, p, Wp, Hs, W, HW, row);
     }
   }
 }
@@ -304,10 +312,11 @@ int persistent_blocks(int* status) {
 
 template <typename OutT>
 int launch(const float* ref, const float* src, float* bsrc, const float* coef,
-           const float* idepth, OutT* out, int B, int H, int W, int P, cudaStream_t stream) {
-  const int packed = B * (H + 2 * kPad) * (W + 2 * kPad);
+           const float* idepth, OutT* out, int B, int H, int W, int P, int Hs, int row_offset,
+           cudaStream_t stream) {
+  const int packed = B * (Hs + 2 * kPad) * (W + 2 * kPad);
   pack_source_kernel<<<(packed + kPackThreads - 1) / kPackThreads, kPackThreads, 0, stream>>>(
-      src, reinterpret_cast<float4*>(bsrc), B, H, W);
+      src, reinterpret_cast<float4*>(bsrc), B, Hs, W);
   int status = static_cast<int>(cudaGetLastError());
   if (status != 0) return status;
   const int items = B * H * ((W + kChunk - 1) / kChunk) * ((P + kPlanes - 1) / kPlanes);
@@ -315,24 +324,28 @@ int launch(const float* ref, const float* src, float* bsrc, const float* coef,
   if (status != 0) return status;
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   cost_volume_kernel<OutT><<<grid, kThreads, 0, stream>>>(
-      ref, reinterpret_cast<const float4*>(bsrc), coef, idepth, out, B, H, W, P);
+      ref, reinterpret_cast<const float4*>(bsrc), coef, idepth, out, B, H, W, P, Hs, row_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// ref, src: [B, H, W, 3] f32 contiguous; bsrc: scratch of B (H + 4) (W + 4)
-// x 4 f32, 16-byte aligned (the packed source); coef: [B, 12] f32; idepth:
-// [P] f32; out: [B, P, H, W], f32 or (out_bf16 != 0) bf16. The caller keeps
-// B * P * H * W and the scratch's size below 2^31. Two launches (pack, then
-// costs) on `stream`; returns the first non-zero cudaGetLastError(), checked
-// after each.
+// ref: [B, H, W, 3] f32 contiguous, the rows from global row row_offset on;
+// src: [B, Hs, W, 3] f32 contiguous, the whole source; bsrc: scratch of
+// B (Hs + 4) (W + 4) x 4 f32, 16-byte aligned (the packed source); coef:
+// [B, 12] f32; idepth: [P] f32; out: [B, P, H, W], f32 or (out_bf16 != 0)
+// bf16. The caller keeps B * P * H * W, B * H * W * 3 and the scratch's
+// size below 2^31. Two launches (pack, then costs) on `stream`; returns the
+// first non-zero cudaGetLastError(), checked after each.
 extern "C" int cnm_cost_volume(const float* ref, const float* src, float* bsrc,
                                const float* coef, const float* idepth, void* out, int B, int H,
-                               int W, int P, int out_bf16, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                               int W, int P, int Hs, int row_offset, int out_bf16,
+                               cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || P <= 0 || Hs <= 0 || row_offset < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (out_bf16)
-    return launch(ref, src, bsrc, coef, idepth, static_cast<__nv_bfloat16*>(out), B, H, W, P,
-                  stream);
-  return launch(ref, src, bsrc, coef, idepth, static_cast<float*>(out), B, H, W, P, stream);
+    return launch(ref, src, bsrc, coef, idepth, static_cast<__nv_bfloat16*>(out), B, H, W, P, Hs,
+                  row_offset, stream);
+  return launch(ref, src, bsrc, coef, idepth, static_cast<float*>(out), B, H, W, P, Hs,
+                row_offset, stream);
 }

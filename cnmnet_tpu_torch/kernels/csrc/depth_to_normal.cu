@@ -9,6 +9,13 @@
 // equations by the adjugate (A^T 1 where det < 1e-5 or NaN), and divide by
 // sqrt(|n|^2 + 1e-20) + norm_eps.
 //
+// The depth's rows are the image's from global row row_offset on: a row
+// shard of the tiled op (parallel/tiled_ops.py) passes its rows with k/2
+// halo rows from its neighbours and row_offset = its first row - k/2, and
+// keeps the interior rows. A pixel backprojects through its global (u, v),
+// and every window adds its taps first to last from 0, so the interior
+// rows equal the untiled normals bit for bit. The untiled call passes 0.
+//
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32) at 192x256, k = 9:
 // 0.2 MB of depth read and 0.6 MB of normals written per image (0.24 us)
 // against about 11 MFLOP (0.16 us), so the function is bound by its bytes
@@ -142,8 +149,8 @@ __device__ __forceinline__ float3 solve(const float s[9], float det_eps, float n
 template <int K>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) depth_to_normal_kernel(
     const float* __restrict__ depth, const float* __restrict__ kinv,
-    float* __restrict__ out, int H, int W, float vmin, float vmax, float det_eps,
-    float norm_eps) {
+    float* __restrict__ out, int H, int W, int row_offset, float vmin, float vmax,
+    float det_eps, float norm_eps) {
   using T = Tile<K>;
   extern __shared__ __align__(16) float smem[];
   float* px = smem;                  // [SH][Pitch] masked points
@@ -183,7 +190,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) depth_to_normal_kernel(
     float X = 0.0f, Y = 0.0f, Z = 0.0f;
     if (d > vmin && d < vmax) {
       const float u = static_cast<float>(col0 - T::R + xx);
-      const float v = static_cast<float>(row0 - T::R + yy);
+      const float v = static_cast<float>(row0 - T::R + yy + row_offset);
       X = mul(add(add(mul(k0, u), mul(k1, v)), k2), d);
       Y = mul(add(add(mul(k3, u), mul(k4, v)), k5), d);
       Z = mul(add(add(mul(k6, u), mul(k7, v)), k8), d);
@@ -272,8 +279,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) depth_to_normal_kernel(
 static_assert(kRun == 2, "the vector store above writes two normals");
 
 template <int K>
-int launch(const float* depth, const float* kinv, float* out, int B, int H, int W, float vmin,
-           float vmax, float det_eps, float norm_eps, cudaStream_t stream) {
+int launch(const float* depth, const float* kinv, float* out, int B, int H, int W,
+           int row_offset, float vmin, float vmax, float det_eps, float norm_eps,
+           cudaStream_t stream) {
   static bool ready[kMaxDevices];
   int dev = 0;
   int status = static_cast<int>(cudaGetDevice(&dev));
@@ -288,23 +296,26 @@ int launch(const float* depth, const float* kinv, float* out, int B, int H, int 
   }
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
   depth_to_normal_kernel<K><<<grid, kThreads, Tile<K>::Bytes, stream>>>(
-      depth, kinv, out, H, W, vmin, vmax, det_eps, norm_eps);
+      depth, kinv, out, H, W, row_offset, vmin, vmax, det_eps, norm_eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// depth: [B, H, W] f32; kinv: [B, 3, 3] f32; out: [B, H, W, 3] f32, all
-// contiguous. Returns cudaGetLastError() after the launch.
+// depth: [B, H, W] f32, rows from global row row_offset on; kinv: [B, 3, 3]
+// f32; out: [B, H, W, 3] f32, all contiguous. Returns cudaGetLastError()
+// after the launch.
 extern "C" int cnm_depth_to_normal(const float* depth, const float* kinv, float* out,
-                                   int B, int H, int W, int k, float vmin, float vmax,
-                                   float det_eps, float norm_eps, cudaStream_t stream) {
+                                   int B, int H, int W, int k, int row_offset, float vmin,
+                                   float vmax, float det_eps, float norm_eps,
+                                   cudaStream_t stream) {
   if (B <= 0 || H <= 0 || W <= 0 || k < 1 || k % 2 == 0 || k > kMaxK)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (k) {
 #define CNM_CASE(KK) \
   case KK:           \
-    return launch<KK>(depth, kinv, out, B, H, W, vmin, vmax, det_eps, norm_eps, stream);
+    return launch<KK>(depth, kinv, out, B, H, W, row_offset, vmin, vmax, det_eps, norm_eps, \
+                      stream);
     CNM_CASE(1) CNM_CASE(3) CNM_CASE(5) CNM_CASE(7) CNM_CASE(9)
     CNM_CASE(11) CNM_CASE(13) CNM_CASE(15) CNM_CASE(17)
 #undef CNM_CASE

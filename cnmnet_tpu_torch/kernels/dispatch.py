@@ -41,11 +41,16 @@ def _resolve(backend, tensor: torch.Tensor) -> str:
 
 
 def cost_volume(ref_images, src_images, ref_cam, src_cam, idepth_scale=3.0,
-                num_planes=64, backend=None, sampling="exact", out_dtype=None):
+                num_planes=64, backend=None, sampling="exact", out_dtype=None,
+                row_offset=0):
     """Batched plane-sweep cost volume ``[B, H, W, P]`` (see ops.cost_volume).
 
     out_dtype: the volume's type (default f32); the cost accumulates in f32
     and only the writeback rounds.
+
+    row_offset: the global row of the first of ``ref_images``' rows, for a
+    row shard against the whole source (``parallel/tiled_ops.py``); 0 when
+    both images are whole.
 
     sampling: "exact" samples the source at the pinhole projection u;
     "torch" reproduces the reference's grid_sample convention, which lands
@@ -53,7 +58,7 @@ def cost_volume(ref_images, src_images, ref_cam, src_cam, idepth_scale=3.0,
     backend).
     """
     if sampling == "torch":
-        H, W = ref_images.shape[1], ref_images.shape[2]
+        H, W = src_images.shape[1], src_images.shape[2]
         s = src_cam.intrinsic.new_tensor([(W - 1) / W, (H - 1) / H, 1.0])[:, None]
         src_cam = src_cam._replace(intrinsic=src_cam.intrinsic * s)
     elif sampling != "exact":
@@ -61,14 +66,15 @@ def cost_volume(ref_images, src_images, ref_cam, src_cam, idepth_scale=3.0,
     out_dtype = out_dtype or torch.float32
     if _resolve(backend, ref_images) == "cuda":
         return _cv_kernel.cost_volume(ref_images, src_images, ref_cam, src_cam,
-                                      idepth_scale, num_planes, out_dtype)
+                                      idepth_scale, num_planes, out_dtype, row_offset)
     vol = _cv_ops.cost_volume_from_cameras(ref_images, src_images, ref_cam, src_cam,
-                                           idepth_scale, num_planes)
+                                           idepth_scale, num_planes, row_offset)
     return vol.to(out_dtype)
 
 
-def depth_to_normal(depth, intrinsics_inv, k_size=9, backend=None):
-    """Depth -> (unit normals ``[B, H, W, 3]``, points); see ops.normals."""
+def depth_to_normal(depth, intrinsics_inv, k_size=9, backend=None, row_offset=0):
+    """Depth -> (unit normals ``[B, H, W, 3]``, points); see ops.normals.
+    ``row_offset``: the global row of ``depth``'s first row (a row shard)."""
     if _resolve(backend, depth) == "cuda":
-        return _normal_kernel.depth_to_normal(depth, intrinsics_inv, k_size)
-    return _normal_ops.depth_to_normal(depth, intrinsics_inv, k_size)
+        return _normal_kernel.depth_to_normal(depth, intrinsics_inv, k_size, row_offset)
+    return _normal_ops.depth_to_normal(depth, intrinsics_inv, k_size, row_offset=row_offset)

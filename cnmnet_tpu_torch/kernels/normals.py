@@ -26,7 +26,7 @@ from cnmnet_tpu_torch.kernels import build
 from cnmnet_tpu_torch.ops import normals as plain
 
 MAX_K = 17
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
 
 
 def depth_to_normal_kernel(
@@ -37,10 +37,11 @@ def depth_to_normal_kernel(
     valid_max: float = 10.0,
     det_eps: float = 1e-5,
     norm_eps: float = 1e-5,
+    row_offset: int = 0,
 ) -> torch.Tensor:
-    """Launch the kernel: ``[B, H, W]`` f32 depth and ``[B, 3, 3]`` f32 K^-1,
-    contiguous on one CUDA device -> unit normals ``[B, H, W, 3]`` f32.
-    Does not synchronise."""
+    """Launch the kernel: ``[B, H, W]`` f32 depth (rows from global row
+    ``row_offset`` on) and ``[B, 3, 3]`` f32 K^-1, contiguous on one CUDA
+    device -> unit normals ``[B, H, W, 3]`` f32. Does not synchronise."""
     if not depth.is_cuda:
         raise ValueError("depth_to_normal_kernel takes CUDA tensors")
     if depth.dim() != 3 or depth.dtype != torch.float32 or not depth.is_contiguous():
@@ -59,7 +60,7 @@ def depth_to_normal_kernel(
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(
             depth.data_ptr(), intrinsics_inv.data_ptr(), out.data_ptr(), B, H, W, k_size,
-            valid_min, valid_max, det_eps, norm_eps, stream,
+            row_offset, valid_min, valid_max, det_eps, norm_eps, stream,
         )
     build.check(status, "cnm_depth_to_normal")
     depth_to_normal_kernel.launches += 1
@@ -76,11 +77,12 @@ class DepthToNormal(torch.autograd.Function):
     the wrapper below hands it f32."""
 
     @staticmethod
-    def forward(ctx, depth, intrinsics_inv, k_size):
+    def forward(ctx, depth, intrinsics_inv, k_size, row_offset=0):
         ctx.save_for_backward(depth, intrinsics_inv)
-        ctx.k_size = k_size
+        ctx.k_size, ctx.row_offset = k_size, row_offset
         return depth_to_normal_kernel(depth.detach().contiguous(),
-                                      intrinsics_inv.detach().contiguous(), k_size)
+                                      intrinsics_inv.detach().contiguous(), k_size,
+                                      row_offset=row_offset)
 
     @staticmethod
     def backward(ctx, grad_normals):
@@ -89,22 +91,25 @@ class DepthToNormal(torch.autograd.Function):
         with torch.profiler.record_function("depth_to_normal_backward"), torch.enable_grad():
             d = depth.detach().requires_grad_(needs[0])
             ki = intrinsics_inv.detach().requires_grad_(needs[1])
-            normals, _ = plain.depth_to_normal(d, ki, ctx.k_size)
+            normals, _ = plain.depth_to_normal(d, ki, ctx.k_size, row_offset=ctx.row_offset)
             wrt = [t for t, n in zip((d, ki), needs) if n]
             grads = iter(torch.autograd.grad(normals, wrt, grad_normals))
-        return tuple(next(grads) if n else None for n in needs) + (None,)
+        return tuple(next(grads) if n else None for n in needs) + (None, None)
 
 
-def depth_to_normal(depth: torch.Tensor, intrinsics_inv: torch.Tensor, k_size: int = 9):
-    """(unit normals ``[B, H, W, 3]``, points ``[B, H, W, 3]``): the plain
-    version for CPU tensors; for CUDA tensors the kernel, inside
-    ``DepthToNormal`` where a gradient is needed (the cast to f32 is part
-    of the graph, so the gradient returns in the caller's dtype)."""
+def depth_to_normal(depth: torch.Tensor, intrinsics_inv: torch.Tensor, k_size: int = 9,
+                    row_offset: int = 0):
+    """(unit normals ``[B, H, W, 3]``, points ``[B, H, W, 3]``) of the depth
+    rows from global row ``row_offset`` on: the plain version for CPU
+    tensors; for CUDA tensors the kernel, inside ``DepthToNormal`` where a
+    gradient is needed (the cast to f32 is part of the graph, so the
+    gradient returns in the caller's dtype)."""
     if not depth.is_cuda:
-        return plain.depth_to_normal(depth, intrinsics_inv, k_size)
+        return plain.depth_to_normal(depth, intrinsics_inv, k_size, row_offset=row_offset)
     d, ki = depth.float(), intrinsics_inv.float()
     if torch.is_grad_enabled() and (d.requires_grad or ki.requires_grad):
-        normals = DepthToNormal.apply(d, ki, k_size)
+        normals = DepthToNormal.apply(d, ki, k_size, row_offset)
     else:
-        normals = depth_to_normal_kernel(d.contiguous(), ki.contiguous(), k_size)
-    return normals, pixel2cam(depth, intrinsics_inv)
+        normals = depth_to_normal_kernel(d.contiguous(), ki.contiguous(), k_size,
+                                         row_offset=row_offset)
+    return normals, pixel2cam(depth, intrinsics_inv, row_offset)

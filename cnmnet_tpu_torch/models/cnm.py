@@ -11,9 +11,14 @@ Counterpart of ``cnmnet_tpu/models/cnm.py``, covering the same protocols:
 Inputs and outputs keep the JAX package's layouts (images ``[B, V, H, W,
 3]``, cams ``[B, V, 2, 4, 4]``, NHWC outputs); the convolutions run NCHW
 and the outputs are NHWC views of their results. The module computes in
-the dtype of its conv weights (``cast_for_compute(model, torch.bfloat16)``
-for bf16 compute); the cost volume is written in that dtype and the
+its ``compute_dtype`` when one is set (``layers.set_compute_dtype``: bf16
+training, f32 parameters, each conv casting at use), else in the dtype of
+its conv weights (``cast_for_compute(model, torch.bfloat16)``, bf16
+serving); the cost volume is written in that dtype from f32 images, and the
 disparity heads return f32.
+
+``remat`` (0-5) and ``remat_refiner`` recompute DepthNet's first encoder
+stages and the RefineNet in the backward (see the two modules).
 """
 
 from __future__ import annotations
@@ -68,6 +73,8 @@ def cast_for_compute(model: nn.Module, dtype: torch.dtype, device=None) -> nn.Mo
 
 
 class CNMModel(nn.Module):
+    compute_dtype = None
+
     def __init__(
         self,
         idepth_scale: float = 3.0,
@@ -76,6 +83,8 @@ class CNMModel(nn.Module):
         cv_backend: Optional[str] = None,
         sampling: str = "exact",
         use_refiner: bool = True,
+        remat: int = 0,
+        remat_refiner: bool = False,
     ):
         super().__init__()
         self.idepth_scale = idepth_scale
@@ -83,8 +92,9 @@ class CNMModel(nn.Module):
         self.cv_backend = cv_backend
         self.sampling = sampling
         self.use_refiner = use_refiner
-        self.depth_net = DepthNet(idepth_scale, num_planes, norm)
-        self.refine_net = DepthRefineNet(idepth_scale, norm) if use_refiner else None
+        self.depth_net = DepthNet(idepth_scale, num_planes, norm, remat)
+        self.refine_net = (DepthRefineNet(idepth_scale, norm, remat_refiner)
+                           if use_refiner else None)
 
     def forward(self, images: torch.Tensor, cams: torch.Tensor) -> CNMOutputs:
         """images: [B, V, H, W, 3] normalised float (view 0 = reference);
@@ -93,7 +103,7 @@ class CNMModel(nn.Module):
         S = V - 1
         if S < 1:
             raise ValueError(f"need at least one source view, got V={V}")
-        dt = self.depth_net.conv1[0].weight.dtype
+        dt = self.compute_dtype or self.depth_net.conv1[0].weight.dtype
 
         # Fold sources into the batch: pair i of sample b sits at b * S + i.
         ref = images[:, 0].repeat_interleave(S, 0)

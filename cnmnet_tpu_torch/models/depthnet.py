@@ -9,7 +9,11 @@ reference's submodule names:
 * decoder ``upconv5..1`` / ``iconv5..1`` with the encoder skips and the
   nearest-upsampled coarser disparity concatenated in the JAX package's
   order (1024, 1024, 513, 257, 65 input channels), and the sigmoid heads
-  ``disp4..disp1`` scaled by ``idepth_scale``.
+  ``disp4..disp1`` scaled by ``idepth_scale``;
+* ``remat``: the first ``remat`` encoder stages (0-5, from the input side,
+  where the activations are largest) are recomputed in the backward
+  (``layers.remat``), the JAX ``DepthNet.remat``. The submodules and their
+  ``state_dict`` keys are the same either way.
 """
 
 from __future__ import annotations
@@ -22,13 +26,16 @@ from cnmnet_tpu_torch.models.layers import (
     DispHead,
     DownConvBlock,
     UpConvBlock,
+    remat,
     upsample2x_nearest,
 )
 
 
 class DepthNet(nn.Module):
-    def __init__(self, idepth_scale: float = 3.0, num_planes: int = 64, norm: str = "batch"):
+    def __init__(self, idepth_scale: float = 3.0, num_planes: int = 64, norm: str = "batch",
+                 remat: int = 0):
         super().__init__()
+        self.remat = int(remat)
         s = idepth_scale
         self.conv1 = DownConvBlock(3 + num_planes, 128, 7, norm)
         self.conv2 = DownConvBlock(128, 256, 5, norm)
@@ -55,11 +62,12 @@ class DepthNet(nn.Module):
         in the compute dtype -> ([disp1..disp4] each ``[B, 1, h, w]`` f32 at
         1/2^(k-1) resolution, iconv1 ``[B, 64, H, W]``)."""
         dt = ref_image.dtype
-        conv1 = self.conv1(torch.cat([ref_image, cost_volume], 1))
-        conv2 = self.conv2(conv1)
-        conv3 = self.conv3(conv2)
-        conv4 = self.conv4(conv3)
-        conv5 = self.conv5(conv4)
+        x = torch.cat([ref_image, cost_volume], 1)
+        stages = []
+        for i, block in enumerate((self.conv1, self.conv2, self.conv3, self.conv4, self.conv5)):
+            x = remat(block, x) if i < self.remat else block(x)
+            stages.append(x)
+        conv1, conv2, conv3, conv4, conv5 = stages
 
         iconv5 = self.iconv5(torch.cat([self.upconv5(conv5), conv4], 1))
         iconv4 = self.iconv4(torch.cat([self.upconv4(iconv5), conv3], 1))

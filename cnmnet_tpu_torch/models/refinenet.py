@@ -9,22 +9,35 @@ reference's flat submodule names (``conv1..3``,
 * a shared stride-2 encoder 128, 256, 512 (kernel 3);
 * two decoder branches with the 256/128 encoder skips, one ending in the
   refined inverse depth (sigmoid x ``idepth_scale``), the other in the
-  occlusion probability (sigmoid).
+  occlusion probability (sigmoid);
+* ``remat``: the three encoder blocks and both decoder branches (heads
+  included, as the JAX ``_DecoderBranch``) are recomputed in the backward
+  (``layers.remat``), the JAX ``DepthRefineNet.remat``; the ``state_dict``
+  keys are the same either way.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
-from cnmnet_tpu_torch.models.layers import ConvNormAct, DispHead, DownConvBlock, UpConvBlock
+from cnmnet_tpu_torch.models.layers import (
+    ConvNormAct,
+    DispHead,
+    DownConvBlock,
+    UpConvBlock,
+    remat,
+)
 
 BRANCHES = ("depth", "prob")
 
 
 class DepthRefineNet(nn.Module):
-    def __init__(self, idepth_scale: float = 3.0, norm: str = "batch"):
+    def __init__(self, idepth_scale: float = 3.0, norm: str = "batch", remat: bool = False):
         super().__init__()
+        self.remat = bool(remat)
         self.conv1 = DownConvBlock(67, 128, 3, norm)
         self.conv2 = DownConvBlock(128, 256, 3, norm)
         self.conv3 = DownConvBlock(256, 512, 3, norm)
@@ -38,11 +51,14 @@ class DepthRefineNet(nn.Module):
         self.disp_refine = DispHead(64, idepth_scale)
         self.prob = DispHead(64, 1.0)
 
-    def _branch(self, tag, conv1, conv2, conv3):
+    def _branch(self, tag, head, conv1, conv2, conv3):
         m = lambda name: getattr(self, f"{name}_{tag}")  # noqa: E731
         iconv3 = m("iconv3")(torch.cat([m("upconv3")(conv3), conv2], 1))
         iconv2 = m("iconv2")(torch.cat([m("upconv2")(iconv3), conv1], 1))
-        return m("iconv1")(m("upconv1")(iconv2))
+        return head(m("iconv1")(m("upconv1")(iconv2)))
+
+    def _run(self, fn, *inputs):
+        return remat(fn, *inputs, owner=self) if self.remat else fn(*inputs)
 
     def forward(self, idepth01, idepth02, iconv01, iconv02):
         """``idepth0*`` ``[B, 1, H, W]``, ``iconv0*`` ``[B, 64, H, W]`` ->
@@ -50,9 +66,9 @@ class DepthRefineNet(nn.Module):
         dt = iconv01.dtype
         diff = (idepth01 - idepth02).abs()
         x = torch.cat([idepth01.to(dt), idepth02.to(dt), diff.to(dt), iconv01 + iconv02], 1)
-        conv1 = self.conv1(x)
-        conv2 = self.conv2(conv1)
-        conv3 = self.conv3(conv2)
-        disp_refined = self.disp_refine(self._branch("depth", conv1, conv2, conv3))
-        prob_map = self.prob(self._branch("prob", conv1, conv2, conv3))
-        return disp_refined, prob_map
+        conv1 = self._run(self.conv1, x)
+        conv2 = self._run(self.conv2, conv1)
+        conv3 = self._run(self.conv3, conv2)
+        depth = functools.partial(self._branch, "depth", self.disp_refine)
+        prob = functools.partial(self._branch, "prob", self.prob)
+        return self._run(depth, conv1, conv2, conv3), self._run(prob, conv1, conv2, conv3)

@@ -9,6 +9,11 @@ zero padding, and record ``sum_c |warped - ref|``.
 The volume is computed plane-major, ``[B, P, H, W]`` (what the stem
 convolution reads), and returned as the ``[B, H, W, P]`` view of it that
 the JAX package's contract names. No gradient flows through it.
+
+The reference rows may be a row shard (``parallel/tiled_ops.py``): ``H``
+rows from global row ``row_offset`` on, against the whole source of ``Hs``
+rows, as the JAX version takes local reference rows against the full
+source. Sampling and the coordinate clip use the source's size.
 """
 
 from __future__ import annotations
@@ -63,24 +68,26 @@ def _sweep_coords(KRKiUV, KT, idepths, height, width, eps=1e-6):
 def plane_sweep_cost_volume(ref_image, src_image, KRKiUV, KT, idepths) -> torch.Tensor:
     """Batched cost volume ``[B, P, H, W]`` (f32).
 
-    ``ref_image``, ``src_image``: ``[B, H, W, C]``; ``KRKiUV`` ``[B, 3, H*W]``;
+    ``ref_image`` ``[B, H, W, C]``, ``src_image`` ``[B, Hs, W, C]``;
+    ``KRKiUV`` ``[B, 3, H*W]`` (the reference pixels' global coordinates);
     ``KT`` ``[B, 3, 1]``; ``idepths`` ``[P]``. Out-of-frustum taps are zero,
     so their cost is ``sum |ref|``.
     """
     B, H, W, C = ref_image.shape
+    Hs = src_image.shape[1]
     P = idepths.shape[0]
-    x, y = _sweep_coords(KRKiUV, KT, idepths, H, W)
+    x, y = _sweep_coords(KRKiUV, KT, idepths, Hs, W)
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     fx = x - x0
     fy = y - y0
     x0i = x0.to(torch.int64)
     y0i = y0.to(torch.int64)
-    flat = src_image.reshape(B, H * W, C)
+    flat = src_image.reshape(B, Hs * W, C)
 
     def tap(xi, yi, w):
-        inside = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
-        idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)  # [B, P, HW]
+        inside = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= Hs - 1)
+        idx = yi.clamp(0, Hs - 1) * W + xi.clamp(0, W - 1)  # [B, P, HW]
         vals = torch.gather(flat, 1, idx.reshape(B, P * H * W, 1).expand(-1, -1, C))
         return vals.reshape(B, P, H * W, C) * (w * inside)[..., None]
 
@@ -104,12 +111,14 @@ def cost_volume_from_cameras(
     src_cam: Camera,
     idepth_scale: float = 3.0,
     num_planes: int = 64,
+    row_offset: int = 0,
 ) -> torch.Tensor:
-    """``[B, H, W, C]`` images and cameras of batch ``[B]`` -> ``[B, H, W, P]``
+    """``[B, H, W, C]`` reference rows from global row ``row_offset`` on, the
+    ``[B, Hs, W, C]`` source and cameras of batch ``[B]`` -> ``[B, H, W, P]``
     (a view of the plane-major ``[B, P, H, W]`` result), detached."""
     with torch.no_grad():
         _, H, W, _ = ref_image.shape
         idepths = idepth_hypotheses(idepth_scale, num_planes, ref_image.device)
-        KRKiUV, KT = plane_sweep_terms(ref_cam, src_cam, H, W)
+        KRKiUV, KT = plane_sweep_terms(ref_cam, src_cam, H, W, row_offset)
         vol = plane_sweep_cost_volume(ref_image.float(), src_image.float(), KRKiUV, KT, idepths)
     return vol.permute(0, 2, 3, 1)

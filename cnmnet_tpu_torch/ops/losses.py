@@ -14,6 +14,21 @@ for the gradients as much as for the values:
 ``torch.maximum`` against a tensor stands wherever the JAX module takes
 ``jnp.maximum`` of a differentiable value: it splits the gradient at a tie
 as ``jnp.maximum`` does (``clamp_min`` would not).
+
+Every function takes ``group``: a data mesh's data group, or None for the
+batch in hand. With a group each result is the value of the global batch,
+as the JAX step's psums make it, the same on every rank:
+
+* masked means (``masked_l1``, ``prob_weighted_l1``,
+  ``prob_supervision_loss``, ``warped_depth_loss``) sum their terms over
+  the group with a gradient (``parallel/collectives.data_sum``) and divide by
+  the group's valid count, which carries none. A mean of the ranks'
+  masked means would weigh each rank's valid pixels by the inverse of its
+  own count;
+* plain means (``multiscale_idepth_loss``, ``global_mean``) sum over the
+  group and divide by the group's element count;
+* ``surface_normal_loss`` averages the per-sample means over the group's
+  samples, and is NaN when a sample of any rank has no valid pixel.
 """
 
 from __future__ import annotations
@@ -24,10 +39,22 @@ from typing import List, Optional
 import torch
 
 from cnmnet_tpu_torch.geometry.warp import inverse_warp
+from cnmnet_tpu_torch.parallel.collectives import data_count, data_sum
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.where(mask, x, 0.0).sum() / torch.clamp_min(mask.to(x.dtype).sum(), 1.0)
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
+    total = torch.where(mask, x, 0.0).sum()
+    count = mask.to(x.dtype).sum()
+    if group is not None:
+        total, count = data_sum(total, group), data_count(count, group)
+    return total / torch.clamp_min(count, 1.0)
+
+
+def global_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x.mean()``, over the group's elements when a group is given."""
+    if group is None:
+        return x.mean()
+    return data_sum(x.sum(), group) / data_count(x.new_tensor(float(x.numel())), group)
 
 
 def valid_pair_mask(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -40,44 +67,47 @@ def _log_diff(pred, gt, mask):
                      - torch.log10(torch.where(mask, gt, 1.0)))
 
 
-def masked_l1(pred: torch.Tensor, gt: torch.Tensor, log: bool = False) -> torch.Tensor:
+def masked_l1(pred: torch.Tensor, gt: torch.Tensor, log: bool = False,
+              group=None) -> torch.Tensor:
     """Masked mean absolute error."""
     mask = valid_pair_mask(pred, gt)
     diff = _log_diff(pred, gt, mask) if log else torch.abs(pred - gt)
-    return _masked_mean(diff, mask)
+    return _masked_mean(diff, mask, group)
 
 
-def multiscale_idepth_loss(preds: List[torch.Tensor], gt: torch.Tensor) -> torch.Tensor:
+def multiscale_idepth_loss(preds: List[torch.Tensor], gt: torch.Tensor,
+                           group=None) -> torch.Tensor:
     """0.1 x the mean of the unmasked L1 at scales 2-4.
 
     preds: [disp1, disp2, disp3, disp4], NHWC at (H, H/2, H/4, H/8); gt at
     full size, taken nearest (``gt[:, ::f, ::f]``).
     """
-    losses = [torch.mean(torch.abs(preds[i] - gt[:, ::f, ::f]))
+    losses = [global_mean(torch.abs(preds[i] - gt[:, ::f, ::f]), group)
               for i, f in ((1, 2), (2, 4), (3, 8))]
     return 0.1 * sum(losses) / 3.0
 
 
 def prob_weighted_l1(pred: torch.Tensor, gt: torch.Tensor, prob_map: torch.Tensor,
-                     log: bool = False) -> torch.Tensor:
+                     log: bool = False, group=None) -> torch.Tensor:
     """Mean of ``prob * |diff|`` over valid pixels."""
     mask = valid_pair_mask(pred, gt)
     diff = 10.0 * _log_diff(pred, gt, mask) if log else torch.abs(pred - gt)
-    return _masked_mean(prob_map * diff, mask)
+    return _masked_mean(prob_map * diff, mask, group)
 
 
 def prob_supervision_loss(prob_map: torch.Tensor, idepth_refined: torch.Tensor,
-                          gt_idepth: torch.Tensor, prob_weight: float = 20.0):
+                          gt_idepth: torch.Tensor, prob_weight: float = 20.0, group=None):
     """(loss, prob_map_gt): ``prob_map`` against the pseudo ground truth
     ``exp(-prob_weight |idepth_refined - gt|)`` on valid pixels."""
     mask = valid_pair_mask(idepth_refined, gt_idepth)
     diff = torch.abs(idepth_refined - gt_idepth)
     prob_gt = torch.exp(-prob_weight * diff) * mask.to(prob_map.dtype)
-    return _masked_mean(torch.abs(prob_map - prob_gt), mask), prob_gt
+    return _masked_mean(torch.abs(prob_map - prob_gt), mask, group), prob_gt
 
 
 def surface_normal_loss(pred: torch.Tensor, gt: torch.Tensor, valid: torch.Tensor,
-                        probability_map: Optional[torch.Tensor] = None, eps: float = 1e-8):
+                        probability_map: Optional[torch.Tensor] = None, eps: float = 1e-8,
+                        group=None):
     """(loss, mean angle in degrees) of ``1 - cos`` between normal maps.
 
     Each sample's mean is over its own valid and finite pixels, and the
@@ -113,19 +143,21 @@ def surface_normal_loss(pred: torch.Tensor, gt: torch.Tensor, valid: torch.Tenso
         ws = w.sum((1, 2))
         per_sample = (torch.where(mask_b, (1.0 - cos) * w, 0.0).sum((1, 2))
                       / torch.maximum(ws, ws.new_tensor(eps)))
-    all_nonempty = torch.all(count > 0)
+    empty = (count == 0).to(pred.dtype).sum()
+    all_nonempty = (empty if group is None else data_count(empty, group)) == 0
     nan = torch.full((), math.nan, dtype=pred.dtype, device=pred.device)
-    loss = torch.where(all_nonempty, per_sample.mean(), nan)
+    loss = torch.where(all_nonempty, global_mean(per_sample, group), nan)
 
     ang = torch.arccos(torch.clamp(cos, -1.0, 1.0))
     ang_per_sample = torch.where(mask_b, ang, 0.0).sum((1, 2)) / safe_count
-    mean_angle = torch.where(all_nonempty, ang_per_sample.mean(), nan) / math.pi * 180.0
-    return loss, mean_angle
+    mean_angle = torch.where(all_nonempty, global_mean(ang_per_sample, group), nan)
+    return loss, mean_angle / math.pi * 180.0
 
 
 def warped_depth_loss(depth_refined: torch.Tensor, gt_depth_src: torch.Tensor,
                       pose: torch.Tensor, intrinsics: torch.Tensor,
-                      intrinsics_inv: torch.Tensor, max_depth: float = 10.0) -> torch.Tensor:
+                      intrinsics_inv: torch.Tensor, max_depth: float = 10.0,
+                      group=None) -> torch.Tensor:
     """Cross-view warped-depth consistency: the refined reference depth,
     moved into the source frame by ``pose`` (ref->src ``[B, 3, 4]``),
     against the source's GT depth sampled there; L1 over in-range,
@@ -136,4 +168,4 @@ def warped_depth_loss(depth_refined: torch.Tensor, gt_depth_src: torch.Tensor,
     mask = ((warped_gt > 0.0) & (warped_gt < max_depth) & (src_z > 0.0)
             & (depth_refined > 0.0) & (depth_refined < max_depth)
             & torch.isfinite(src_z) & torch.isfinite(warped_gt))
-    return _masked_mean(torch.abs(src_z - warped_gt), mask)
+    return _masked_mean(torch.abs(src_z - warped_gt), mask, group)

@@ -7,6 +7,10 @@ zero-padded k x k window sums of the monomials (xx, xy, xz, yy, yz, zz, x,
 y, z), solve ``(A^T A) n = A^T 1`` by the closed-form adjugate (identity
 where ``det < 1e-5`` or NaN), and L2-normalise.
 
+A row shard of the tiled op (``parallel/tiled_ops.py``) passes its rows
+with their halo and ``row_offset``, the global row of the first: pixels
+backproject through their global ``v``.
+
 The box sum is written as shifted slice additions of the zero-padded input,
 vertical pass then horizontal, each tap added in order: exact f32 that no
 TF32 setting touches. Every expression here is one elementwise op after
@@ -93,10 +97,12 @@ def depth_to_normal(
     valid_min: float = 0.0,
     valid_max: float = 10.0,
     norm_eps: float = 1e-5,
+    row_offset: int = 0,
 ):
-    """``depth`` ``[B, H, W]``, ``intrinsics_inv`` ``[B, 3, 3]`` ->
-    (unit normals ``[B, H, W, 3]``, points ``[B, H, W, 3]``)."""
-    points = pixel2cam(depth, intrinsics_inv)
+    """``depth`` ``[B, H, W]`` (rows from global row ``row_offset`` on),
+    ``intrinsics_inv`` ``[B, 3, 3]`` -> (unit normals ``[B, H, W, 3]``,
+    points ``[B, H, W, 3]``)."""
+    points = pixel2cam(depth, intrinsics_inv, row_offset)
     valid = ((depth > valid_min) & (depth < valid_max)).to(depth.dtype)
     p = points * valid[..., None]
     x, y, z = p.unbind(-1)

@@ -60,7 +60,8 @@ Deliberate differences from the JAX package:
 * a malformed request (rank, shape, dtype, fewer than two views) fails its
   own future at ``submit``; a failed dispatch or fetch fails only the
   futures of that chunk;
-* mesh serving is not ported (slice 5), and checkpoints are the port's
+* mesh serving waits for its ROADMAP item (Queue 1, mesh serving and
+  eval), and checkpoints are the port's
   ``torch.save`` format, not orbax's.
 """
 
@@ -103,14 +104,6 @@ def _next_bucket(n: int, buckets: Sequence[int]) -> int:
         if n <= b:
             return b
     return buckets[-1]
-
-
-def build_model(cfg: Config) -> CNMModel:
-    m = cfg.model
-    return CNMModel(
-        idepth_scale=m.idepth_scale, num_planes=m.num_planes, norm=m.norm,
-        cv_backend=m.cv_backend, sampling=m.sampling, use_refiner=m.use_refiner,
-    )
 
 
 def restore_weights(model: CNMModel, checkpoint, directory: str) -> None:
@@ -188,6 +181,8 @@ class InferenceSession:
         self.k_size = k_size or self.cfg.model.k_size
 
         self._lock = threading.Lock()
+
+        from cnmnet_tpu_torch.train.state import build_model
 
         model = build_model(self.cfg)
         if checkpoint is not None:

@@ -15,7 +15,30 @@ consecutive samples; each runs forward and backward in turn (the BatchNorm
 statistics move once per microbatch, chained), the gradients and metrics
 are averaged, and one update follows.
 
-``train_loop`` is the JAX driver without the mesh: checkpoints every
+``make_train_step(cfg, mesh)`` with a ``parallel/mesh.Mesh`` of several
+ranks is the data-parallel step: each rank passes its own samples, and the
+step computes what the one-process step computes on the global batch (the
+JAX step is one program over it):
+
+* the BatchNorm layers take their statistics over the data group
+  (``parallel/sharding.data_parallel``) and move their running statistics
+  by them;
+* every loss term is the global batch's (``train/losses.py``), so each
+  rank holds the same loss and metrics;
+* the gradients are averaged over the data group by one all-reduce before
+  the optimizer (the all-reduces inside the loss make each rank's gradient
+  ``world`` times its samples' share), so ``grad_clip_norm`` and
+  ``grad_norm`` see the global gradient; under ``grad_accum`` that is one
+  all-reduce per update, after the microbatches. Microbatch ``i`` is then
+  every rank's ``i``-th local microbatch: the one-process step on the
+  global batch ordered so that its microbatches are those unions;
+* the parameters and statistics are broadcast from the first rank of the
+  data group at the first step, as ``DistributedDataParallel`` does.
+
+A tile axis above 1 raises ``NotImplementedError``: row-sharding the conv
+stack waits for its ROADMAP item.
+
+``train_loop`` is the JAX epoch loop: checkpoints every
 ``train.ckpt_interval`` steps, at every epoch end and at ``max_steps``; a
 watchdog that halts after three consecutive non-finite losses (it reads the
 previous step's loss, which is ready by then); SIGTERM and ^C raised as
@@ -23,7 +46,10 @@ previous step's loss, which is ready by then); SIGTERM and ^C raised as
 saved on every way out; ``train.steps_per_epoch``; resume from
 ``train.resume_dir``; scalars every ``train.print_interval`` steps and the
 image summaries (``_log_images``) every ten of those. The trainer sets no
-global precision flag (TF32 stays as the caller left it).
+global precision flag (TF32 stays as the caller left it). Under a mesh of
+several ranks every rank resumes from the same step of the one shared
+checkpoint directory, and the first rank alone writes each checkpoint
+while the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -34,9 +60,12 @@ from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cnmnet_tpu_torch.config import Config
 from cnmnet_tpu_torch.ops.images import prepare_images
+from cnmnet_tpu_torch.parallel.mesh import Mesh
+from cnmnet_tpu_torch.parallel.sharding import data_parallel
 from cnmnet_tpu_torch.train.losses import LossWeights, compute_losses
 from cnmnet_tpu_torch.train.state import TrainState, create_train_state, global_norm, make_optimizer
 
@@ -59,15 +88,19 @@ def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
             .to(device) for k, v in batch.items()}
 
 
-def loss_and_grads(model, batch: Dict[str, torch.Tensor], epoch: int, w: LossWeights):
+def loss_and_grads(model, batch: Dict[str, torch.Tensor], epoch: int, w: LossWeights,
+                   group=None):
     """One forward of ``model`` (in the mode it is in) on a batch of tensors:
     the gradient of the loss for every parameter, in ``model.parameters()``
     order (zeros where a parameter took no part), the loss terms, and the
-    detached maps of the image summaries."""
+    detached maps of the image summaries. ``group``: a data group whose
+    ranks run the same call on their own samples (BatchNorm statistics and
+    loss terms over all of them; see the module docstring)."""
     params = list(model.parameters())
-    out = model(prepare_images(batch["images"]), batch["cams"])
-    loss, metrics = compute_losses(out, batch, epoch, w)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    with data_parallel(model, group):
+        out = model(prepare_images(batch["images"]), batch["cams"])
+        loss, metrics = compute_losses(out, batch, epoch, w, group)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
     viz = {"pred_idepth_01": out.disps[0][:, 0].detach()}
     if out.idepth_refined is not None:
         viz["pred_idepth_refined"] = out.idepth_refined.detach()
@@ -76,21 +109,55 @@ def loss_and_grads(model, batch: Dict[str, torch.Tensor], epoch: int, w: LossWei
     return grads, metrics, viz
 
 
-def make_train_step(cfg: Config) -> Callable:
+def _data_group(mesh: Optional[Mesh]):
+    """The data group of ``mesh`` (None: one process, or one data shard)."""
+    if mesh is None:
+        return None
+    if mesh.tile > 1:
+        raise NotImplementedError(
+            f"parallel.tile_axis={mesh.tile}: row-sharding the conv stack over a tile axis is "
+            "not ported (ROADMAP, Queue 1: the tile axis through the conv stack)")
+    return mesh.data_group
+
+
+def _all_reduce_mean(grads, group):
+    """Average the gradients over ``group`` with one all-reduce of their
+    concatenation."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat /= dist.get_world_size(group)
+    return [x.view_as(g) for x, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+@torch.no_grad()
+def _broadcast_state(model, group):
+    """Every parameter and buffer from the data group's first rank."""
+    src = dist.get_global_rank(group, 0)
+    for t in list(model.parameters()) + list(model.buffers()):
+        dist.broadcast(t, src, group=group)
+
+
+def make_train_step(cfg: Config, mesh: Optional[Mesh] = None) -> Callable:
     """Build ``step(state, batch) -> (state, metrics)``; see the module
     docstring. ``batch`` is a dict of numpy arrays or tensors, moved to the
-    model's device."""
+    model's device; under a mesh, this rank's samples."""
     w = loss_weights_from_config(cfg)
     accum = max(1, int(cfg.train.grad_accum))
     opt = make_optimizer(cfg)
+    group = _data_group(mesh)
+    synced = False
 
     def step(state: TrainState, batch: Dict):
+        nonlocal synced
         params = state.params()
         device = next(iter(params.values())).device
         batch = batch_to_device(batch, device)
         state.model.train()
+        if group is not None and not synced:
+            _broadcast_state(state.model, group)
+            synced = True
         if accum == 1:
-            grads, metrics, viz = loss_and_grads(state.model, batch, state.epoch, w)
+            grads, metrics, viz = loss_and_grads(state.model, batch, state.epoch, w, group)
         else:
             for k, v in batch.items():
                 if v.shape[0] % accum:
@@ -100,7 +167,7 @@ def make_train_step(cfg: Config) -> Callable:
             grads = metrics = viz = None
             for i in range(accum):
                 mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-                g, mm, vz = loss_and_grads(state.model, mb, state.epoch, w)
+                g, mm, vz = loss_and_grads(state.model, mb, state.epoch, w, group)
                 grads = g if grads is None else [a + b for a, b in zip(grads, g)]
                 metrics = mm if metrics is None else {k: metrics[k] + mm[k] for k in metrics}
                 if i == 0:
@@ -108,6 +175,8 @@ def make_train_step(cfg: Config) -> Callable:
             inv = 1.0 / accum
             grads = [g * inv for g in grads]
             metrics = {k: v * inv for k, v in metrics.items()}
+        if group is not None:
+            grads = _all_reduce_mean(grads, group)
         updates, state.opt_state = opt.update(dict(zip(params, grads)), state.opt_state, params)
         opt.apply(params, updates)
         state.step += 1
@@ -146,6 +215,24 @@ def _log_images(logger, step: int, batch, viz):
         print(f"image logging failed: {e!r}")
 
 
+class _PrimaryWrites:
+    """The checkpointer of a mesh of several ranks: the mesh's first rank
+    writes each save, and every rank waits at a barrier after it, so no
+    rank goes on before the step is whole on the shared directory."""
+
+    def __init__(self, checkpointer, mesh: Mesh):
+        self.checkpointer, self.mesh = checkpointer, mesh
+
+    def save(self, state, step=None):
+        if self.mesh.rank == 0:
+            self.checkpointer.save(state, step=step)
+            self.checkpointer.wait()
+        dist.barrier(group=self.mesh.group)
+
+    def wait(self):
+        self.checkpointer.wait()
+
+
 def train_loop(
     cfg: Config,
     data_iter_fn: Callable[[], Iterator[Dict]],
@@ -153,11 +240,14 @@ def train_loop(
     checkpointer=None,
     max_steps: Optional[int] = None,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> TrainState:
     """Epoch driver: initialise (or resume), iterate, log, checkpoint; see
     the module docstring. ``logger`` is a ``MetricLogger`` (or anything with
     ``log_scalars``, ``log_image`` and ``log_histogram``); ``checkpointer`` a ``CheckpointManager`` (or
-    anything with ``save``, ``wait`` and ``restore``)."""
+    anything with ``save``, ``wait`` and ``restore``). ``mesh``: the data
+    mesh of a multi-process run; ``data_iter_fn`` then yields this rank's
+    samples."""
     state = create_train_state(cfg, cfg.train.seed, device)
     start_epoch = 0
     if checkpointer is not None and cfg.train.resume_dir:
@@ -166,7 +256,9 @@ def train_loop(
             state = restored
             start_epoch = state.epoch
 
-    step_fn = make_train_step(cfg)
+    step_fn = make_train_step(cfg, mesh)
+    if checkpointer is not None and mesh is not None and mesh.size > 1:
+        checkpointer = _PrimaryWrites(checkpointer, mesh)
     global_step = state.step
     nan_streak = 0
     prev_loss = None

@@ -11,6 +11,13 @@ as in the JAX function, so no step waits on the device to choose one.
 The depth->normal calls go through ``kernels/dispatch``: the CUDA kernel
 (with its autograd Function) for CUDA tensors, the plain version for CPU
 tensors or with ``backend="torch"``.
+
+Under a data mesh (``group``, the data group) every term is the global
+batch's value on every rank, as in the JAX step over the global batch:
+the masked and plain means, ``prob_map.mean()`` and the normal terms are
+reduced over the group as ``ops/losses.py`` says, so the NaN guard and the
+logged metrics see the global values. The depth->normal and CNM-target
+computations are per sample and stay local.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from cnmnet_tpu_torch.geometry.camera import _mm, invert_intrinsics, invert_se3
 from cnmnet_tpu_torch.kernels import dispatch
 from cnmnet_tpu_torch.models.cnm import CNMOutputs
 from cnmnet_tpu_torch.ops.losses import (
+    global_mean,
     masked_l1,
     multiscale_idepth_loss,
     prob_supervision_loss,
@@ -63,11 +71,13 @@ class LossWeights:
 
 
 def compute_losses(out: CNMOutputs, batch: Dict[str, torch.Tensor], epoch: int,
-                   w: LossWeights) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   w: LossWeights, group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics). ``batch`` holds tensors (NHWC): images
     [B,V,H,W,3], cams [B,V,2,4,4], depths [B,V,H,W], disparity [B,H,W],
     normals [B,H,W,3], instance_segs [B,S,H,W], planes_num [B]. The loss is
-    in the graph; the metrics are its terms as detached scalars."""
+    in the graph; the metrics are its terms as detached scalars. ``group``:
+    the data group of a data mesh (the terms are then the global batch's)."""
+    g = group
     gt_disp = batch["disparity"][..., None]
     gt_depth_ref = batch["depths"][:, 0][..., None]
 
@@ -75,14 +85,16 @@ def compute_losses(out: CNMOutputs, batch: Dict[str, torch.Tensor], epoch: int,
     idepth02 = _at(out.disps[0], 1)
     has_refiner = out.idepth_refined is not None
 
-    loss_idepth_1 = 0.5 * (masked_l1(idepth01, gt_disp) + masked_l1(idepth02, gt_disp))
+    loss_idepth_1 = 0.5 * (masked_l1(idepth01, gt_disp, group=g)
+                           + masked_l1(idepth02, gt_disp, group=g))
     loss_idepth_234 = 0.5 * (
-        multiscale_idepth_loss([_at(d, 0) for d in out.disps], gt_disp)
-        + multiscale_idepth_loss([_at(d, 1) for d in out.disps], gt_disp)
+        multiscale_idepth_loss([_at(d, 0) for d in out.disps], gt_disp, g)
+        + multiscale_idepth_loss([_at(d, 1) for d in out.disps], gt_disp, g)
     )
     depth01 = _to_depth(idepth01)
     depth02 = _to_depth(idepth02)
-    loss_depth_1 = 0.5 * (masked_l1(depth01, gt_depth_ref) + masked_l1(depth02, gt_depth_ref))
+    loss_depth_1 = 0.5 * (masked_l1(depth01, gt_depth_ref, group=g)
+                          + masked_l1(depth02, gt_depth_ref, group=g))
     metrics = {
         "loss_idepth": loss_idepth_1,
         "loss_idepth_234": loss_idepth_234,
@@ -93,13 +105,13 @@ def compute_losses(out: CNMOutputs, batch: Dict[str, torch.Tensor], epoch: int,
         idepth_refined = out.idepth_refined
         prob_map = out.prob_map
         depth_refined = _to_depth(idepth_refined)
-        loss_idepth_refined = masked_l1(idepth_refined, gt_disp)
-        loss_depth_refined = masked_l1(depth_refined, gt_depth_ref)
-        prob_loss_depth = (prob_weighted_l1(idepth_refined, gt_disp, prob_map)
-                           + prob_weighted_l1(depth_refined, gt_depth_ref, prob_map))
-        prob_loss_minusmean = 1.0 - prob_map.mean()
+        loss_idepth_refined = masked_l1(idepth_refined, gt_disp, group=g)
+        loss_depth_refined = masked_l1(depth_refined, gt_depth_ref, group=g)
+        prob_loss_depth = (prob_weighted_l1(idepth_refined, gt_disp, prob_map, group=g)
+                           + prob_weighted_l1(depth_refined, gt_depth_ref, prob_map, group=g))
+        prob_loss_minusmean = 1.0 - global_mean(prob_map, g)
         prob_map_loss, _ = prob_supervision_loss(prob_map, idepth_refined, gt_disp,
-                                                 w.prob_weight)
+                                                 w.prob_weight, group=g)
         prob_loss = 5.0 * prob_loss_depth + prob_loss_minusmean
         if w.include_prob_map_loss:
             prob_loss = prob_loss + prob_map_loss
@@ -144,9 +156,9 @@ def compute_losses(out: CNMOutputs, batch: Dict[str, torch.Tensor], epoch: int,
         target_normal = gt_normal
     valid = batch["depths"][:, 0] > 0.1
 
-    ln01, ang01 = surface_normal_loss(n01, target_normal, valid)
-    ln02, ang02 = surface_normal_loss(n02, target_normal, valid)
-    ln_ref, ang_ref = surface_normal_loss(n_ref, target_normal, valid)
+    ln01, ang01 = surface_normal_loss(n01, target_normal, valid, group=g)
+    ln02, ang02 = surface_normal_loss(n02, target_normal, valid, group=g)
+    ln_ref, ang_ref = surface_normal_loss(n_ref, target_normal, valid, group=g)
     loss_normal_depth = 0.5 * (ln01 + ln02)
     loss_normal_depth_refined = ln_ref
     mean_angle = (ang01 + ang02 + ang_ref) / 3.0
@@ -156,7 +168,7 @@ def compute_losses(out: CNMOutputs, batch: Dict[str, torch.Tensor], epoch: int,
     for v in (1, 2):
         pose = _mm(_at(batch["cams"], v)[:, 0], ref_E_inv)[:, :3]  # ref -> src v
         warped.append(warped_depth_loss(depth_refined[..., 0], _at(batch["depths"], v), pose,
-                                        K, K_inv))
+                                        K, K_inv, group=g))
     warped_1, warped_2 = warped
 
     base = loss_idepth_1 + loss_depth_1 + loss_depth_refined + loss_idepth_refined

@@ -20,6 +20,27 @@ A parameter without a gradient takes a zero gradient, as optax's zeros do:
 its moments still decay. The learning rate and bias corrections are
 computed on the host in float32 from the step count, so the update waits
 on nothing.
+
+``build_model(cfg)`` checks the model options as the JAX ``build_model``
+and its layers do:
+
+* ``model.remat=true`` with ``remat_stages`` outside -1 and 1-5 raises
+  ``ValueError`` (``_remat_stages``; -1 means all five stages);
+* a ``model.stride2`` other than ``conv``, ``s2d`` or ``psg`` raises
+  ``KeyError``, as the JAX layers do when they build a stride-2 conv. All
+  three build the plain strided conv here: ``s2d`` and ``psg`` are TPU
+  lowerings of the same conv with the same parameters and outputs
+  (RESULTS.md, "backward-conv lever").
+
+One check is stricter on purpose: a ``model.norm`` other than ``batch`` or
+``group`` raises ``ValueError`` (``models/layers.py:_norm``), where the JAX
+layers take any value but ``batch`` as GroupNorm.
+
+Training in bf16 (``model.compute_dtype="bfloat16"``) is flax's
+``dtype=bfloat16``: the parameters, the optimizer's moments and the norm
+layers' statistics stay f32, and every conv casts its input and weight to
+bf16 at use (``layers.set_compute_dtype``). ``models/cnm.py``'s
+``cast_for_compute`` casts the weights themselves and is for serving.
 """
 
 from __future__ import annotations
@@ -32,9 +53,12 @@ import torch
 
 from cnmnet_tpu_torch.config import Config, SolverConfig
 from cnmnet_tpu_torch.models.cnm import CNMModel
-from cnmnet_tpu_torch.models.layers import init_weights
+from cnmnet_tpu_torch.models.layers import init_weights, set_compute_dtype
 from cnmnet_tpu_torch.models.transplant import load_flax_variables
-from cnmnet_tpu_torch.serve import build_model, resolve_device
+from cnmnet_tpu_torch.serve import resolve_device
+
+STRIDE2 = ("conv", "s2d", "psg")
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 Tensors = List[torch.Tensor]
 
@@ -135,8 +159,12 @@ class Optimizer:
             self.warmup_steps)
         return _f32(np.float32(-self.lr) * frac + np.float32(self.lr))
 
+    @torch.no_grad()
     def update(self, grads: Mapping[str, Optional[torch.Tensor]], state: Dict,
                params: Mapping[str, torch.Tensor]) -> Tuple[Dict, Dict]:
+        """The updates and the new state. Outside autograd: the weight decay
+        reads the parameters, and moments built with a gradient would chain
+        every step's graph (and its saved gradients) to the next."""
         names = list(params)
         p = [params[k] for k in names]
         g = [grads[k] if grads.get(k) is not None else torch.zeros_like(params[k])
@@ -165,6 +193,36 @@ def make_optimizer(cfg: Config) -> Optimizer:
     return Optimizer(cfg.solver)
 
 
+def _remat_stages(cfg: Config) -> int:
+    """``model.remat``/``remat_stages`` as an encoder stage count: 0 without
+    remat, 5 for -1, 1-5 as they are; anything else with remat on raises
+    (``cnmnet_tpu/train/state.py:_remat_stages``)."""
+    if not cfg.model.remat:
+        return 0
+    n = cfg.model.remat_stages
+    if n == -1:
+        return 5
+    if not 1 <= n <= 5:
+        raise ValueError(
+            f"model.remat_stages={n} with model.remat=true: expected -1 "
+            "(all five encoder stages) or 1-5 (that many from the input side)"
+        )
+    return n
+
+
+def build_model(cfg: Config) -> CNMModel:
+    """The ``CNMModel`` of ``cfg.model``, its options checked (see the module
+    docstring); weights uninitialised, computing in its weights' dtype."""
+    m = cfg.model
+    if m.stride2 not in STRIDE2:
+        raise KeyError(m.stride2)
+    return CNMModel(
+        idepth_scale=m.idepth_scale, num_planes=m.num_planes, norm=m.norm,
+        cv_backend=m.cv_backend, sampling=m.sampling, use_refiner=m.use_refiner,
+        remat=_remat_stages(cfg), remat_refiner=m.remat_refiner,
+    )
+
+
 @dataclass
 class TrainState:
     """The model (parameters and BatchNorm statistics), the optimizer's
@@ -183,20 +241,20 @@ def create_train_state(cfg: Config, seed: int, device="cuda",
                        flax_variables: Optional[Mapping] = None) -> TrainState:
     """A fresh state on ``device``: weights seeded through ``init_weights``
     with a ``torch.Generator``, or carried over from the JAX package's
-    ``{"params", "batch_stats"}`` tree; zero moments.
-
-    Training computes in f32 (``model.compute_dtype`` "float32", the
-    default); bf16 training is not ported.
+    ``{"params", "batch_stats"}`` tree; zero moments. Parameters, moments
+    and statistics are f32; ``model.compute_dtype`` "bfloat16" computes
+    the convs in bf16 (see the module docstring).
     """
-    if cfg.model.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"model.compute_dtype={cfg.model.compute_dtype!r}: the port trains in float32 only"
-        )
+    if cfg.model.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"model.compute_dtype={cfg.model.compute_dtype!r}: choose from "
+                         f"{sorted(COMPUTE_DTYPES)}")
     dev = resolve_device(device)
     model = build_model(cfg)
     if flax_variables is not None:
         load_flax_variables(model, flax_variables)
     else:
         init_weights(model, torch.Generator().manual_seed(seed))
+    if cfg.model.compute_dtype != "float32":
+        set_compute_dtype(model, COMPUTE_DTYPES[cfg.model.compute_dtype])
     model.to(dev)
     return TrainState(model=model, opt_state=make_optimizer(cfg).init(dict(model.named_parameters())))

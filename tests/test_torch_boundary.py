@@ -133,3 +133,9 @@ def test_cli_has_the_jax_subcommands_but_those_of_later_slices(monkeypatch):
     for name, waits_for in LATER_SLICES.items():
         assert f"``{name}``" in cli.__doc__, name
         assert waits_for in cli.__doc__
+
+
+def test_the_walk_covers_the_parallel_package():
+    walked = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for name in ("collectives", "mesh", "sharding", "tiled_ops"):
+        assert f"cnmnet_tpu_torch/parallel/{name}.py" in walked

@@ -152,7 +152,7 @@ def counting_step(monkeypatch):
     ``create_train_state`` by the small state."""
     monkeypatch.setattr(loop_mod, "create_train_state", lambda cfg, seed, device: _fresh(seed))
 
-    def fake_make_train_step(cfg):
+    def fake_make_train_step(cfg, mesh=None):
         def fake_step(state, batch):
             state.step += 1
             return state, {"loss": torch.tensor(1.0)}
@@ -203,7 +203,7 @@ def test_sigterm_leaves_a_checkpoint_at_its_step(counting_step, monkeypatch, tmp
     loop raises KeyboardInterrupt and step 3 is on disk. No subprocess and
     no clock."""
 
-    def make(cfg):
+    def make(cfg, mesh=None):
         def step(state, batch):
             state.step += 1
             if state.step == 3:
@@ -243,7 +243,7 @@ def test_resume_continues_from_the_checkpoint(counting_step, monkeypatch, tmp_pa
         state.step += 1
         return state, {"loss": torch.tensor(1.0)}
 
-    monkeypatch.setattr(loop_mod, "make_train_step", lambda c: recording_step)
+    monkeypatch.setattr(loop_mod, "make_train_step", lambda c, mesh=None: recording_step)
     resumed = loop_mod.train_loop(cfg, _data(10), checkpointer=mgr, max_steps=3, device="cpu")
     assert resumed.step == 3 and mgr.all_steps() == [2, 3]
     for k, v in saved.model.state_dict().items():

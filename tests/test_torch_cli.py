@@ -12,8 +12,8 @@
   ``evaluate_scannet_planes``, ``InferenceSession.predict`` (equal
   ``.pred.npz`` arrays), and ``events.jsonl`` (the exported scalars).
   No JAX model is compiled here.
-* Without a card the default device raises; a multi-process training
-  configuration raises ``NotImplementedError``.
+* Without a card the default device raises; a training configuration with
+  a tile axis raises ``NotImplementedError``.
 """
 
 import argparse
@@ -101,9 +101,12 @@ def test_the_default_device_needs_a_card(argv):
 
 
 def test_multi_process_training_waits_for_the_distribution_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    """Multi-process training runs (``tests/test_torch_distributed.py``); a
+    tile axis, which would row-shard the conv stack, still waits for its
+    ROADMAP item and raises before any process group is joined."""
+    with pytest.raises(NotImplementedError, match="tile axis through the conv stack"):
         cli.main(["train", "--synthetic", "--device", "cpu", "parallel.coordinator_address=h:1",
-                  f"train.log_dir={tmp_path}/logs"])
+                  "parallel.tile_axis=2", f"train.log_dir={tmp_path}/logs"])
 
 
 def test_python_dash_m_runs_the_cli():

@@ -260,6 +260,16 @@ def test_kernel_refuses_sizes_past_32_bit_indexing():
         kcv.check_sizes(1, 23170, 23170, 1)
 
 
+def test_kernel_sizes_of_a_row_shard_against_the_whole_source():
+    """A row shard's launch indexes its reference rows, its volume rows and
+    the packed whole source (``Hs`` rows): each must stay below 2^31."""
+    kcv.check_sizes(2, 120, 640, 64, Hs=480)  # a 480x640 shard of tile 4
+    with pytest.raises(ValueError, match="packed source has"):
+        kcv.check_sizes(1, 8, 23170, 1, Hs=23170)
+    with pytest.raises(ValueError, match="reference has"):
+        kcv.check_sizes(1, 27000, 27000, 1, Hs=8)
+
+
 def test_kernel_module_imports_without_nvcc(monkeypatch, tmp_path):
     """This module imported the kernel modules on a host without nvcc (the
     build waits for the first launch); a build without nvcc raises with the

@@ -47,7 +47,7 @@ from cnmnet_tpu_torch.evals import cal_metrics as tcal  # noqa: E402
 from cnmnet_tpu_torch.evals import scannet_eval as tscannet  # noqa: E402
 from cnmnet_tpu_torch.evals import seven_scenes_eval as teval  # noqa: E402
 from cnmnet_tpu_torch.models.transplant import flatten, load_flax_variables  # noqa: E402
-from cnmnet_tpu_torch.serve import build_model  # noqa: E402
+from cnmnet_tpu_torch.train.state import build_model  # noqa: E402
 
 SEQS = [("chess", "seq-03"), ("fire", "seq-04")]
 H, W = 48, 64

@@ -212,9 +212,9 @@ def test_box_filter_gradient_is_the_slice_sums_gradient(rng):
         assert err <= 1e-6, (k, float(err))
 
 
-def _plain_kernel(depth, intrinsics_inv, k_size=9):
+def _plain_kernel(depth, intrinsics_inv, k_size=9, row_offset=0):
     """Stands in for the CUDA kernel on the CPU: the plain normals."""
-    return tn.depth_to_normal(depth, intrinsics_inv, k_size)[0]
+    return tn.depth_to_normal(depth, intrinsics_inv, k_size, row_offset=row_offset)[0]
 
 
 @pytest.mark.parametrize("with_kinv", [False, True])

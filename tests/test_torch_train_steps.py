@@ -148,7 +148,7 @@ def test_no_valid_depth_drops_normal_terms_with_finite_gradients(batch):
 def test_watchdog_halts_and_leaves_a_checkpoint(batch, monkeypatch):
     calls = {"n": 0}
 
-    def fake_make_train_step(cfg):
+    def fake_make_train_step(cfg, mesh=None):
         def fake_step(state, b):
             calls["n"] += 1
             state.step += 1
@@ -180,9 +180,18 @@ def test_watchdog_halts_and_leaves_a_checkpoint(batch, monkeypatch):
 
 
 def test_bf16_training_is_not_ported():
+    """bf16 training is ported (``tests/test_torch_train.py`` holds a step to
+    JAX's): the state keeps f32 parameters, BatchNorm statistics and
+    moments, and its convs compute in bf16. A compute dtype the JAX
+    package's bf16/f32 pair does not cover raises."""
     cfg = _cfg()
     cfg.model.compute_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match="float32"):
+    state = create_train_state(cfg, 0, "cpu")
+    assert state.model.compute_dtype == torch.bfloat16
+    tensors = list(state.model.state_dict().values()) + list(state.opt_state["mu"].values())
+    assert all(t.dtype == torch.float32 for t in tensors if t.is_floating_point())
+    cfg.model.compute_dtype = "float16"
+    with pytest.raises(ValueError, match="float16"):
         create_train_state(cfg, 0, "cpu")
 
 
@@ -244,7 +253,7 @@ def test_image_summaries_at_the_jax_cadence(batch, monkeypatch):
     """Scalars every ``print_interval`` iterations, the image summaries at
     ``it % (print_interval * 10) == 0`` (``cnmnet_tpu/train/loop.py:401``),
     of the first sample only; ``viz`` leaves the logged metrics."""
-    def fake_make_train_step(cfg):
+    def fake_make_train_step(cfg, mesh=None):
         def fake_step(state, b):
             state.step += 1
             maps = torch.rand(2, H, W, 1)
