@@ -17,28 +17,33 @@ JAX CLI reads ``JAX_PLATFORMS``. Without a card, ``cuda`` raises
 cpu`` for a CPU run. ``cal-metrics`` and ``export-tb`` compute on the host
 and have no ``--device``.
 
-``train`` runs on several processes, one card each, when
-``parallel.coordinator_address`` is set (``cnmnet_tpu/cli.py:139-183``):
+``train`` and ``eval`` run on several processes, one card each, when
+``parallel.coordinator_address`` is set (``cnmnet_tpu/cli.py:139-187``):
 
     python -m cnmnet_tpu_torch.cli train parallel.coordinator_address=host:port \
-        parallel.num_processes=N parallel.process_id=i ...
+        parallel.num_processes=N parallel.process_id=i parallel.tile_axis=T ...
 
 Each process calls ``torch.distributed.init_process_group`` on
 ``tcp://host:port`` (NCCL on cards, gloo on the CPU; one already
 initialised is used as it is) and takes ``cuda:{LOCAL_RANK}``, or ``cuda:{rank
-% device count}``, then trains its data shard of a ``data x 1`` mesh
-(``PrefetchLoader(shard_index=rank, shard_count=N)``; ``--synthetic`` gives
-every process the same scenes, as in JAX). All processes share one
-checkpoint directory, checked at start: the first writes, the others wait
-at a barrier, and every process resumes from the same step. A
-``parallel.tile_axis`` above 1 raises ``NotImplementedError``: the tile axis
-through the conv stack is a ROADMAP item.
+% device count}``. ``train`` lays the ranks out as a ``data x tile`` mesh
+(``parallel.data_axis`` and ``parallel.tile_axis``): the loader shards
+samples over the data axis (``PrefetchLoader(shard_index=data index,
+shard_count=data)``; ``--synthetic`` gives every process the same scenes,
+as in JAX), and the ranks of one data index split each sample's rows. All
+processes share one checkpoint directory, checked at start: the first
+writes, the others wait at a barrier, and every process resumes from the
+same step. A tile axis above 1 needs that many processes.
 
-``eval`` runs on one device, unsharded, as the JAX CLI does on one device;
-``--eval-tile`` waits for the same tile-axis item. The ``bench``,
-``prep-cameras``, ``prep-planes``, ``prep-list`` and ``report`` commands
-are not here: the first waits for the port's benchmark, the others for the
-offline tools (slice 6).
+``eval`` over N processes follows the JAX CLI's multi-device eval: with
+``--frame-batch`` above 1 or ``--eval-tile`` above 1 the ranks form a
+``data x tile`` mesh (tile ``--eval-tile``, or 1 where it does not divide N
+or ``sharding.tile_partition_safe`` refuses the height, each said in a
+printed line), the frame batch rounds up to a multiple of the data axis,
+and every process prints the metrics of the whole run. On one process the
+eval runs unsharded. The ``bench``, ``prep-cameras``, ``prep-planes``,
+``prep-list`` and ``report`` commands are not here: the first waits for
+the port's benchmark, the others for the offline tools (slice 6).
 """
 
 from __future__ import annotations
@@ -78,8 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--frame-batch", type=int, default=1,
                    help="frames per batched forward")
     e.add_argument("--eval-tile", type=int, default=1,
-                   help="row tiles per frame over several devices (waits for the tile "
-                        "axis through the conv stack; one device runs unsharded)")
+                   help="row tiles per frame over several processes (one process runs "
+                        "unsharded)")
     e.add_argument("overrides", nargs="*")
 
     cm = sub.add_parser("cal-metrics",
@@ -152,34 +157,45 @@ def cmd_train(args) -> int:
         cfg.train.use_normal_loss = False
     if args.synthetic:
         cfg.dataset.synthetic = True
-    if cfg.parallel.tile_axis > 1:
-        raise NotImplementedError(
-            f"parallel.tile_axis={cfg.parallel.tile_axis}: row-sharding the conv stack is not "
-            "ported (ROADMAP, Queue 1: the tile axis through the conv stack)")
 
     from cnmnet_tpu_torch.serve import resolve_device
 
     device = resolve_device(args.device)
-    mesh, joined = None, False
-    if cfg.parallel.coordinator_address:
-        device, mesh, joined = _join_processes(cfg, device)
+    p = cfg.parallel
+    if not p.coordinator_address:
+        if p.tile_axis > 1:
+            raise ValueError(f"parallel.tile_axis={p.tile_axis} splits rows over that many "
+                             "processes: set parallel.coordinator_address")
+        return _train(cfg, args, device, None)
+    device, joined = _join_processes(cfg, device)
     try:
-        return _train(cfg, args, device, mesh)
-    finally:
-        if joined:
-            import torch.distributed as dist
+        import torch.distributed as dist
 
-            dist.destroy_process_group()
+        from cnmnet_tpu_torch.parallel.mesh import make_mesh
+
+        paths = [None] * dist.get_world_size()
+        dist.all_gather_object(paths, os.path.abspath(cfg.train.checkpoint_dir))
+        if len(set(paths)) != 1:
+            raise ValueError("train.checkpoint_dir must be one shared path across processes: "
+                             "the first process writes every checkpoint and all resume from it")
+        return _train(cfg, args, device, make_mesh(data=p.data_axis, tile=p.tile_axis))
+    finally:
+        _leave(joined)
+
+
+def _leave(joined: bool) -> None:
+    if joined:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 def _join_processes(cfg: Config, device):
-    """Initialise the process group of ``cfg.parallel`` (unless one is),
-    pick this process's card, and lay the ranks out as a data mesh; returns
-    ``(device, mesh, whether this call initialised the group)``."""
+    """Initialise the process group of ``cfg.parallel`` (unless one is) and
+    pick this process's card; returns ``(device, whether this call
+    initialised the group)``."""
     import torch
     import torch.distributed as dist
-
-    from cnmnet_tpu_torch.parallel.mesh import make_mesh
 
     p = cfg.parallel
     joined = not dist.is_initialized()
@@ -198,12 +214,7 @@ def _join_processes(cfg: Config, device):
         raise ValueError(f"process group of {dist.get_world_size()} with rank {dist.get_rank()} "
                          f"!= parallel.num_processes={p.num_processes}, "
                          f"process_id={p.process_id}")
-    paths = [None] * dist.get_world_size()
-    dist.all_gather_object(paths, os.path.abspath(cfg.train.checkpoint_dir))
-    if len(set(paths)) != 1:
-        raise ValueError("train.checkpoint_dir must be one shared path across processes: "
-                         "the first process writes every checkpoint and all resume from it")
-    return device, make_mesh(data=p.data_axis, tile=1), joined
+    return device, joined
 
 
 def _train(cfg: Config, args, device, mesh) -> int:
@@ -234,7 +245,7 @@ def _train(cfg: Config, args, device, mesh) -> int:
             max_planes=cfg.dataset.max_planes,
             wire_dtype=cfg.dataset.wire_dtype,
         )
-        shard = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+        shard = (mesh.data_index, mesh.data) if mesh is not None else (0, 1)
         loader = PrefetchLoader(ds, batch_size=cfg.dataset.batch_size,
                                 num_workers=cfg.dataset.num_workers, seed=cfg.train.seed,
                                 shard_index=shard[0], shard_count=shard[1])
@@ -266,25 +277,59 @@ def cmd_eval(args) -> int:
 
     device = resolve_device(args.device)
     num_sources = {2: 1, 3: 2, 5: 4, 7: 6}[args.views]
-    if args.eval_tile > 1:
-        print(f"eval-tile={args.eval_tile} needs the tile axis through the conv stack "
-              "(ROADMAP, Queue 1); running unsharded")
-    model = _restored_model(cfg, args.checkpoint)
-    forward = make_eval_forward(model, k_size=cfg.model.k_size, device=device,
-                                compute_dtype=cfg.model.compute_dtype)
-    result = evaluate_seven_scenes(
-        forward,
-        cfg.dataset.root_dir,
-        num_sources=num_sources,
-        image_height=cfg.dataset.image_height,
-        image_width=cfg.dataset.image_width,
-        save_dir=args.save_dir,
-        max_frames_per_seq=args.max_frames_per_seq,
-        frame_batch=args.frame_batch,
-        wire_dtype=cfg.dataset.wire_dtype,
-    )
+    joined = False
+    if cfg.parallel.coordinator_address:
+        device, joined = _join_processes(cfg, device)
+    try:
+        mesh, frame_batch = _eval_mesh(cfg, args)
+        model = _restored_model(cfg, args.checkpoint)
+        forward = make_eval_forward(model, k_size=cfg.model.k_size, device=device,
+                                    compute_dtype=cfg.model.compute_dtype, mesh=mesh)
+        result = evaluate_seven_scenes(
+            forward,
+            cfg.dataset.root_dir,
+            num_sources=num_sources,
+            image_height=cfg.dataset.image_height,
+            image_width=cfg.dataset.image_width,
+            save_dir=args.save_dir,
+            max_frames_per_seq=args.max_frames_per_seq,
+            frame_batch=frame_batch,
+            mesh=mesh,
+            wire_dtype=cfg.dataset.wire_dtype,
+        )
+    finally:
+        _leave(joined)
     _print_metrics(result)
     return 0
+
+
+def _eval_mesh(cfg: Config, args):
+    """``(mesh or None, frame batch)`` of a multi-process eval, with the JAX
+    CLI's rules and messages (``cnmnet_tpu/cli.py:292-324``)."""
+    import torch.distributed as dist
+
+    frame_batch, tile = args.frame_batch, max(1, args.eval_tile)
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if not ((frame_batch > 1 or tile > 1) and n > 1):
+        return None, frame_batch
+    from cnmnet_tpu_torch.parallel.mesh import make_mesh
+    from cnmnet_tpu_torch.parallel.sharding import tile_partition_safe
+
+    if n % tile:
+        print(f"eval-tile={tile} does not divide {n} devices; running unsharded")
+        tile = 1
+    if tile > 1:
+        safe, reason = tile_partition_safe(cfg.dataset.image_height, tile)
+        if not safe:
+            print(f"eval-tile={tile} DISABLED (falling back to pure data-parallel): {reason}")
+            tile = 1
+    data = n // tile
+    if data > 1 and frame_batch % data:
+        frame_batch = ((frame_batch + data - 1) // data) * data
+        print(f"frame-batch rounded up {args.frame_batch} -> {frame_batch} so all {data} "
+              "data-axis devices are used")
+    print(f"eval mesh: data={data} tile={tile}")
+    return make_mesh(data=data, tile=tile), frame_batch
 
 
 def cmd_cal_metrics(args) -> int:

@@ -21,15 +21,24 @@ A copy of ``cnmnet_tpu/evals/seven_scenes_eval.py`` for the port: the
 per-frame compute (cost volumes + DepthNet + RefineNet + depth->normal)
 runs on the device through ``make_eval_forward``, with both CUDA kernels
 on CUDA tensors; loading, metrics and artifacts are numpy on the host
-(``data/imageio`` in place of cv2 and PIL). The JAX function's ``mesh``
-argument is not taken: mesh eval waits for its ROADMAP item (Queue 1,
-mesh serving and eval).
+(``data/imageio`` in place of cv2 and PIL).
+
+On a ``parallel/mesh.Mesh`` of ranks (one process a card, every rank
+running the same call) each flush's frames go over "data" and their rows
+over "tile": ``make_eval_forward(mesh=)`` runs this rank's frames and rows
+(``parallel/sharding.shard_frames``; the tiled layers and kernels) and
+gathers the outputs to every rank, so every rank scores every frame and
+returns the one-process metrics. ``evaluate_seven_scenes(mesh=)`` holds
+the frame batch to a multiple of the data axis (the CLI rounds it up),
+warns at a height where the JAX package's partitioner would miscompile,
+as the JAX function does, and writes artifacts from rank 0 alone.
 """
 
 from __future__ import annotations
 
 import os
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -144,6 +153,7 @@ def evaluate_seven_scenes(
     seqs: Optional[list] = None,
     logger=None,
     frame_batch: int = 1,
+    mesh=None,
     wire_dtype: str = "float32",
 ) -> Dict[str, float]:
     """Run a protocol over the 18 test sequences.
@@ -158,12 +168,26 @@ def evaluate_seven_scenes(
       root_dir: 7-Scenes root.
       logger: anything with ``log_scalars(step, dict, prefix=)``; called
         after each sequence.
+      mesh: the ``parallel/mesh.Mesh`` that ``forward_fn`` was built on
+        (``make_eval_forward(mesh=)``); see the module docstring.
 
     Returns:
       dict of the nine aggregate metrics, ``seconds_per_frame`` (the mean
       time of the forward alone, up to a device synchronise) and ``frames``.
     """
     proto = EVAL_PROTOCOLS[num_sources]
+    if mesh is not None:
+        from cnmnet_tpu_torch.parallel.sharding import tile_partition_safe
+
+        if frame_batch % mesh.data:
+            raise ValueError(f"frame_batch {frame_batch} does not split over the mesh's "
+                             f"{mesh.data} data ranks")
+        safe, reason = tile_partition_safe(image_height, mesh.tile)
+        if not safe:
+            warnings.warn(f"tile-sharded eval at this height risks GSPMD's silent halo "
+                          f"miscompile in the JAX package: {reason}", stacklevel=2)
+        if mesh.rank != 0:
+            save_dir = None
     ds = SevenScenes(root_dir, image_height, image_width, wire_dtype=wire_dtype)
     per_frame: List[Dict[str, float]] = []
     total_time, count = 0.0, 0
@@ -243,7 +267,8 @@ def evaluate_seven_scenes(
     return result
 
 
-def make_eval_forward(model, k_size: int = 9, device="cuda", compute_dtype: str = "float32"):
+def make_eval_forward(model, k_size: int = 9, device="cuda", compute_dtype: str = "float32",
+                      mesh=None):
     """Build the eval forward of a port ``CNMModel`` for any view count.
 
     Puts ``model`` in eval mode and casts it in place with
@@ -256,28 +281,43 @@ def make_eval_forward(model, k_size: int = 9, device="cuda", compute_dtype: str 
     reference's eval-time ``depth2normal(1/idepth, K^-1)``
     (`eval.py:449-455`) through ``dispatch.depth_to_normal`` with the
     model's ``cv_backend`` (the CUDA kernel for CUDA tensors by default).
+    With ``mesh`` (several ranks), each call runs this rank's frames and
+    rows and returns the whole batch's outputs on every rank.
     """
     from cnmnet_tpu_torch.geometry.camera import invert_intrinsics
     from cnmnet_tpu_torch.kernels import dispatch
     from cnmnet_tpu_torch.models.cnm import cast_for_compute
     from cnmnet_tpu_torch.ops.images import prepare_images
+    from cnmnet_tpu_torch.parallel.sharding import gather_frames, shard_frames, spatial_parallel
+    from cnmnet_tpu_torch.parallel.tiled_ops import depth_to_normal_tiled
     from cnmnet_tpu_torch.serve import resolve_device
 
     dev = resolve_device(device)
     model = cast_for_compute(model, getattr(torch, compute_dtype), dev).eval()
+    mesh = mesh if mesh is not None and mesh.size > 1 else None
 
     @torch.inference_mode()
     def fn(images, cams):
         images = torch.from_numpy(np.ascontiguousarray(images)).to(dev)
         cams = torch.from_numpy(np.ascontiguousarray(cams, np.float32)).to(dev)
-        out = model(prepare_images(images), cams)
+        spatial = None
+        if mesh is not None:
+            spatial, images, cams = shard_frames(mesh, images, cams)
+        with spatial_parallel(model, spatial):
+            out = model(prepare_images(images.contiguous()), cams)
         if out.idepth_refined is not None:
             idepth, prob = out.idepth_refined, out.prob_map
         else:
             idepth, prob = out.disps[0][:, 0], None
         depth = 1.0 / (idepth[..., 0] + 1e-8)
         K_inv = invert_intrinsics(cams[:, 0, 1, :3, :3])
-        normal, _ = dispatch.depth_to_normal(depth, K_inv, k_size, backend=model.cv_backend)
-        return idepth, prob, normal
+        if spatial is not None:
+            normal = depth_to_normal_tiled(depth, K_inv, spatial, k_size, model.cv_backend)
+        else:
+            normal, _ = dispatch.depth_to_normal(depth, K_inv, k_size, backend=model.cv_backend)
+        if mesh is None:
+            return idepth, prob, normal
+        return tuple(None if o is None else gather_frames(mesh, spatial, o.contiguous())
+                     for o in (idepth, prob, normal))
 
     return fn

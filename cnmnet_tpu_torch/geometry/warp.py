@@ -95,12 +95,13 @@ def cam2pixel(points: torch.Tensor, rotation: torch.Tensor, translation: torch.T
 
 
 def inverse_warp(feat: torch.Tensor, depth: torch.Tensor, pose: torch.Tensor,
-                 intrinsics: torch.Tensor, intrinsics_inv: torch.Tensor):
+                 intrinsics: torch.Tensor, intrinsics_inv: torch.Tensor, row_offset: int = 0):
     """Warp source-view features into the reference view given its depth.
 
     Args:
-      feat: ``[B, H, W, C]`` source-view features.
-      depth: ``[B, H, W]`` reference-view depth.
+      feat: ``[B, Hs, W, C]`` source-view features (the whole image).
+      depth: ``[B, H, W]`` reference-view depth, the image's rows from
+        global row ``row_offset`` on (0: the whole image).
       pose: ``[B, 3, 4]`` ref->src rigid transform (rows of ``[R | t]``).
       intrinsics: ``[B, 3, 3]`` source K.
       intrinsics_inv: ``[B, 3, 3]`` inverse of the reference K.
@@ -110,7 +111,7 @@ def inverse_warp(feat: torch.Tensor, depth: torch.Tensor, pose: torch.Tensor,
       resampled into the reference view (zero outside the source frame) and
       each reference point's depth in the source camera.
     """
-    points = pixel2cam(depth, intrinsics_inv)
+    points = pixel2cam(depth, intrinsics_inv, row_offset)
     P = _mm(intrinsics, pose)  # [B, 3, 4]
     x, y, z = cam2pixel(points, P[:, :, :3], P[:, :, 3])
     return bilinear_sample(feat, x, y), z

@@ -19,10 +19,18 @@ disparity heads return f32.
 
 ``remat`` (0-5) and ``remat_refiner`` recompute DepthNet's first encoder
 stages and the RefineNet in the backward (see the two modules).
+
+Under a tile axis (``parallel/sharding.spatial_parallel``) ``images`` holds
+this rank's rows of every view: the cost volume of its reference rows runs
+against the whole source gathered over the tile group
+(``parallel/tiled_ops.cost_volume_tiled``), the nets run on its rows (see
+``models/layers.py``), the group averages are per pixel, and every output
+is its rows.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional
 
 import torch
@@ -32,6 +40,7 @@ from cnmnet_tpu_torch.geometry.camera import camera_from_array
 from cnmnet_tpu_torch.kernels import dispatch
 from cnmnet_tpu_torch.models.depthnet import DepthNet
 from cnmnet_tpu_torch.models.refinenet import DepthRefineNet
+from cnmnet_tpu_torch.parallel.tiled_ops import cost_volume_tiled
 
 
 class CNMOutputs(NamedTuple):
@@ -74,6 +83,7 @@ def cast_for_compute(model: nn.Module, dtype: torch.dtype, device=None) -> nn.Mo
 
 class CNMModel(nn.Module):
     compute_dtype = None
+    spatial = None
 
     def __init__(
         self,
@@ -110,9 +120,13 @@ class CNMModel(nn.Module):
         src = images[:, 1:].reshape(B * S, H, W, C)
         ref_cam = camera_from_array(cams[:, 0].repeat_interleave(S, 0))
         src_cam = camera_from_array(cams[:, 1:].reshape(B * S, 2, 4, 4))
-        volume = dispatch.cost_volume(
-            ref, src, ref_cam, src_cam, self.idepth_scale, self.num_planes,
-            backend=self.cv_backend, sampling=self.sampling, out_dtype=dt,
+        cost_volume = dispatch.cost_volume
+        if self.spatial is not None:
+            cost_volume = functools.partial(cost_volume_tiled, spatial=self.spatial)
+        volume = cost_volume(
+            ref, src, ref_cam, src_cam, idepth_scale=self.idepth_scale,
+            num_planes=self.num_planes, backend=self.cv_backend, sampling=self.sampling,
+            out_dtype=dt,
         )  # [B*S, H, W, P], a view of [B*S, P, H, W]
 
         disps, iconv = self.depth_net(

@@ -10,6 +10,10 @@ reference's submodule names:
   nearest-upsampled coarser disparity concatenated in the JAX package's
   order (1024, 1024, 513, 257, 65 input channels), and the sigmoid heads
   ``disp4..disp1`` scaled by ``idepth_scale``;
+* under a tile axis each map holds this rank's rows; the skip
+  concatenations meet on the same rows because every layer writes the rows
+  of ``parallel/mesh.RowPlan`` at its level (the upsamplings read the coarse
+  rows they need from their owners);
 * ``remat``: the first ``remat`` encoder stages (0-5, from the input side,
   where the activations are largest) are recomputed in the backward
   (``layers.remat``), the JAX ``DepthNet.remat``. The submodules and their
@@ -32,6 +36,8 @@ from cnmnet_tpu_torch.models.layers import (
 
 
 class DepthNet(nn.Module):
+    spatial = None  # this rank's rows under a tile axis (parallel/sharding.spatial_parallel)
+
     def __init__(self, idepth_scale: float = 3.0, num_planes: int = 64, norm: str = "batch",
                  remat: int = 0):
         super().__init__()
@@ -73,15 +79,15 @@ class DepthNet(nn.Module):
         iconv4 = self.iconv4(torch.cat([self.upconv4(iconv5), conv3], 1))
         disp4 = self.disp4(iconv4)
 
-        udisp4 = upsample2x_nearest(disp4).to(dt)
+        udisp4 = upsample2x_nearest(disp4, self.spatial).to(dt)
         iconv3 = self.iconv3(torch.cat([self.upconv3(iconv4), conv2, udisp4], 1))
         disp3 = self.disp3(iconv3)
 
-        udisp3 = upsample2x_nearest(disp3).to(dt)
+        udisp3 = upsample2x_nearest(disp3, self.spatial).to(dt)
         iconv2 = self.iconv2(torch.cat([self.upconv2(iconv3), conv1, udisp3], 1))
         disp2 = self.disp2(iconv2)
 
-        udisp2 = upsample2x_nearest(disp2).to(dt)
+        udisp2 = upsample2x_nearest(disp2, self.spatial).to(dt)
         iconv1 = self.iconv1(torch.cat([self.upconv1(iconv2), udisp2], 1))
         disp1 = self.disp1(iconv1)
         return [disp1, disp2, disp3, disp4], iconv1

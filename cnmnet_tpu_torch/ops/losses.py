@@ -15,20 +15,33 @@ for the gradients as much as for the values:
 ``jnp.maximum`` of a differentiable value: it splits the gradient at a tie
 as ``jnp.maximum`` does (``clamp_min`` would not).
 
-Every function takes ``group``: a data mesh's data group, or None for the
-batch in hand. With a group each result is the value of the global batch,
-as the JAX step's psums make it, the same on every rank:
+Every function takes ``group``: a mesh's group, or None for the batch in
+hand. With a group each result is the value of the global batch, as the
+JAX step's psums make it, the same on every rank:
 
 * masked means (``masked_l1``, ``prob_weighted_l1``,
   ``prob_supervision_loss``, ``warped_depth_loss``) sum their terms over
-  the group with a gradient (``parallel/collectives.data_sum``) and divide by
-  the group's valid count, which carries none. A mean of the ranks'
+  the group with a gradient (``parallel/collectives.group_sum``) and divide
+  by the group's valid count, which carries none. A mean of the ranks'
   masked means would weigh each rank's valid pixels by the inverse of its
   own count;
 * plain means (``multiscale_idepth_loss``, ``global_mean``) sum over the
   group and divide by the group's element count;
 * ``surface_normal_loss`` averages the per-sample means over the group's
   samples, and is NaN when a sample of any rank has no valid pixel.
+
+Under a tile axis the maps are this rank's rows and ``group`` is the whole
+mesh's; ``spatial`` (``parallel/sharding.Spatial``) gives the rest:
+
+* ``multiscale_idepth_loss`` keeps the ground-truth rows whose *global*
+  index is a multiple of ``f`` (``Spatial.subsample``);
+* ``surface_normal_loss`` sums each sample's terms and count over the tile
+  group before it divides; the per-sample means are then the same on every
+  tile rank, and the mean over the mesh weighs each sample ``tile`` times
+  in its sum and its count alike;
+* ``warped_depth_loss`` samples the source's ground truth at any row, so
+  it gathers the whole source (no gradient), and projects its rows from
+  their global pixel rows.
 """
 
 from __future__ import annotations
@@ -39,14 +52,14 @@ from typing import List, Optional
 import torch
 
 from cnmnet_tpu_torch.geometry.warp import inverse_warp
-from cnmnet_tpu_torch.parallel.collectives import data_count, data_sum
+from cnmnet_tpu_torch.parallel.collectives import group_count, group_sum
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
     total = torch.where(mask, x, 0.0).sum()
     count = mask.to(x.dtype).sum()
     if group is not None:
-        total, count = data_sum(total, group), data_count(count, group)
+        total, count = group_sum(total, group), group_count(count, group)
     return total / torch.clamp_min(count, 1.0)
 
 
@@ -54,7 +67,7 @@ def global_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     """``x.mean()``, over the group's elements when a group is given."""
     if group is None:
         return x.mean()
-    return data_sum(x.sum(), group) / data_count(x.new_tensor(float(x.numel())), group)
+    return group_sum(x.sum(), group) / group_count(x.new_tensor(float(x.numel())), group)
 
 
 def valid_pair_mask(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -76,13 +89,18 @@ def masked_l1(pred: torch.Tensor, gt: torch.Tensor, log: bool = False,
 
 
 def multiscale_idepth_loss(preds: List[torch.Tensor], gt: torch.Tensor,
-                           group=None) -> torch.Tensor:
+                           group=None, spatial=None) -> torch.Tensor:
     """0.1 x the mean of the unmasked L1 at scales 2-4.
 
     preds: [disp1, disp2, disp3, disp4], NHWC at (H, H/2, H/4, H/8); gt at
-    full size, taken nearest (``gt[:, ::f, ::f]``).
+    full size, taken nearest (``gt[:, ::f, ::f]``; with ``spatial``, the
+    rows whose global index is a multiple of ``f``).
     """
-    losses = [global_mean(torch.abs(preds[i] - gt[:, ::f, ::f]), group)
+    def nearest(f):
+        rows = gt[:, ::f] if spatial is None else spatial.subsample(gt, f, 1)
+        return rows[:, :, ::f]
+
+    losses = [global_mean(torch.abs(preds[i] - nearest(f)), group)
               for i, f in ((1, 2), (2, 4), (3, 8))]
     return 0.1 * sum(losses) / 3.0
 
@@ -107,7 +125,7 @@ def prob_supervision_loss(prob_map: torch.Tensor, idepth_refined: torch.Tensor,
 
 def surface_normal_loss(pred: torch.Tensor, gt: torch.Tensor, valid: torch.Tensor,
                         probability_map: Optional[torch.Tensor] = None, eps: float = 1e-8,
-                        group=None):
+                        group=None, spatial=None):
     """(loss, mean angle in degrees) of ``1 - cos`` between normal maps.
 
     Each sample's mean is over its own valid and finite pixels, and the
@@ -134,22 +152,26 @@ def surface_normal_loss(pred: torch.Tensor, gt: torch.Tensor, valid: torch.Tenso
     pg = pn * gn
     cos = dot / torch.maximum(pg, pg.new_tensor(eps))
 
-    count = mask.sum((1, 2))
+    def image_sum(x):  # per sample, over the whole image's rows
+        x = x.sum((1, 2))
+        return x if spatial is None else spatial.tile_sum(x)
+
+    count = image_sum(mask)
     safe_count = torch.clamp_min(count, 1.0)
     if probability_map is None:
-        per_sample = torch.where(mask_b, 1.0 - cos, 0.0).sum((1, 2)) / safe_count
+        per_sample = image_sum(torch.where(mask_b, 1.0 - cos, 0.0)) / safe_count
     else:
         w = probability_map * mask
-        ws = w.sum((1, 2))
-        per_sample = (torch.where(mask_b, (1.0 - cos) * w, 0.0).sum((1, 2))
+        ws = image_sum(w)
+        per_sample = (image_sum(torch.where(mask_b, (1.0 - cos) * w, 0.0))
                       / torch.maximum(ws, ws.new_tensor(eps)))
     empty = (count == 0).to(pred.dtype).sum()
-    all_nonempty = (empty if group is None else data_count(empty, group)) == 0
+    all_nonempty = (empty if group is None else group_count(empty, group)) == 0
     nan = torch.full((), math.nan, dtype=pred.dtype, device=pred.device)
     loss = torch.where(all_nonempty, global_mean(per_sample, group), nan)
 
     ang = torch.arccos(torch.clamp(cos, -1.0, 1.0))
-    ang_per_sample = torch.where(mask_b, ang, 0.0).sum((1, 2)) / safe_count
+    ang_per_sample = image_sum(torch.where(mask_b, ang, 0.0)) / safe_count
     mean_angle = torch.where(all_nonempty, global_mean(ang_per_sample, group), nan)
     return loss, mean_angle / math.pi * 180.0
 
@@ -157,13 +179,18 @@ def surface_normal_loss(pred: torch.Tensor, gt: torch.Tensor, valid: torch.Tenso
 def warped_depth_loss(depth_refined: torch.Tensor, gt_depth_src: torch.Tensor,
                       pose: torch.Tensor, intrinsics: torch.Tensor,
                       intrinsics_inv: torch.Tensor, max_depth: float = 10.0,
-                      group=None) -> torch.Tensor:
+                      group=None, spatial=None) -> torch.Tensor:
     """Cross-view warped-depth consistency: the refined reference depth,
     moved into the source frame by ``pose`` (ref->src ``[B, 3, 4]``),
     against the source's GT depth sampled there; L1 over in-range,
     in-frustum points in front of both cameras."""
+    row_offset = 0
+    if spatial is not None:
+        with torch.no_grad():
+            gt_depth_src = spatial.gather(gt_depth_src, 0, dim=1)
+        row_offset = spatial.rows(0)[0]
     warped_gt, src_z = inverse_warp(gt_depth_src[..., None], depth_refined, pose,
-                                    intrinsics, intrinsics_inv)
+                                    intrinsics, intrinsics_inv, row_offset)
     warped_gt = warped_gt[..., 0]
     mask = ((warped_gt > 0.0) & (warped_gt < max_depth) & (src_z > 0.0)
             & (depth_refined > 0.0) & (depth_refined < max_depth)

@@ -9,6 +9,11 @@ The segment sums are broadcast multiplies summed by ``Tensor.sum``, never a
 matmul or an einsum: the JAX package pins them to exact f32 with
 ``Precision.HIGHEST``, and no TF32 or reduced-precision matmul setting can
 touch a plain reduction.
+
+Under a tile axis the maps are this rank's rows, and ``spatial``
+(``parallel/sharding.Spatial``) sums the segments of
+``plane_average_normals`` over the tile group, so each instance's mean is
+the whole image's.
 """
 
 from __future__ import annotations
@@ -24,8 +29,15 @@ def _slot_mask(instance_segs: torch.Tensor, planes_num: torch.Tensor) -> torch.T
     return instance_segs * active[:, :, None, None]
 
 
+def _image_sum(x: torch.Tensor, spatial) -> torch.Tensor:
+    """``x`` summed over dims 2 and 3 (the rows and columns), over the whole
+    image's rows with ``spatial``."""
+    x = x.sum((2, 3))
+    return x if spatial is None else spatial.tile_sum(x)
+
+
 def plane_average_normals(normals: torch.Tensor, instance_segs: torch.Tensor,
-                          planes_num: torch.Tensor, eps: float = 1e-12):
+                          planes_num: torch.Tensor, eps: float = 1e-12, spatial=None):
     """Per-instance mean normals and the composited map.
 
     Args:
@@ -39,8 +51,8 @@ def plane_average_normals(normals: torch.Tensor, instance_segs: torch.Tensor,
       mean, others untouched), the per-slot means and the gated masks.
     """
     m = _slot_mask(instance_segs.to(normals.dtype), planes_num)
-    sums = (m[..., None] * normals[:, None]).sum((2, 3))  # [B, S, 3]
-    counts = m.sum((2, 3))  # [B, S]
+    sums = _image_sum(m[..., None] * normals[:, None], spatial)  # [B, S, 3]
+    counts = _image_sum(m, spatial)  # [B, S]
     means = sums / torch.maximum(counts, counts.new_tensor(eps))[..., None]
     inside = (m[..., None] * means[:, :, None, None, :]).sum(1)  # [B, H, W, 3]
     covered = torch.clamp(m.sum(1), 0.0, 1.0)[..., None]
@@ -48,9 +60,10 @@ def plane_average_normals(normals: torch.Tensor, instance_segs: torch.Tensor,
 
 
 def normal_by_planes(gt_normal: torch.Tensor, instance_segs: torch.Tensor,
-                     planes_num: torch.Tensor) -> torch.Tensor:
+                     planes_num: torch.Tensor, spatial=None) -> torch.Tensor:
     """The Combined Normal Map, ``[B, H, W, 3]``."""
-    combined, _, _ = plane_average_normals(gt_normal, instance_segs, planes_num)
+    combined, _, _ = plane_average_normals(gt_normal, instance_segs, planes_num,
+                                           spatial=spatial)
     return combined
 
 

@@ -39,6 +39,21 @@ of ``models/layers.init_weights``.
 single-frame ``submit``s into batches on one thread, double-buffered: it
 dispatches batch N+1 before it fetches batch N.
 
+``InferenceSession(mesh=)`` serves on a ``parallel/mesh.Mesh`` of ranks,
+one process a card, every rank building the session with the same
+arguments: buckets round up to a multiple of the data axis, as in JAX.
+The mesh's rank 0 answers ``predict``, ``predict_async`` and a
+``MicroBatcher`` as a one-process session does; every other rank runs
+``follow()``. For each bucket batch rank 0 broadcasts the frames, each rank
+runs its frames (over "data") and its rows of them (over "tile",
+``parallel/sharding.shard_frames``: its rows of every layer and the tiled
+kernels), and the outputs are gathered to every rank (``gather_frames``);
+``close()`` on rank 0 ends the followers' loops. A mesh batch is answered
+whole before ``predict_async`` returns: its handle holds the host copy.
+The JAX session's refusal of a tile axis at an unsafe height
+(``sharding.tile_partition_safe``) is kept; the port's ``RowPlan`` refuses
+what it cannot split.
+
 Deliberate differences from the JAX package:
 
 * empty ``outputs`` raises in ``__init__`` (the JAX session fails later,
@@ -60,9 +75,7 @@ Deliberate differences from the JAX package:
 * a malformed request (rank, shape, dtype, fewer than two views) fails its
   own future at ``submit``; a failed dispatch or fetch fails only the
   futures of that chunk;
-* mesh serving waits for its ROADMAP item (Queue 1, mesh serving and
-  eval), and checkpoints are the port's
-  ``torch.save`` format, not orbax's.
+* checkpoints are the port's ``torch.save`` format, not orbax's.
 """
 
 from __future__ import annotations
@@ -84,8 +97,22 @@ from cnmnet_tpu_torch.models.cnm import CNMModel, cast_for_compute
 from cnmnet_tpu_torch.models.layers import init_weights
 from cnmnet_tpu_torch.models.transplant import load_flax_variables
 from cnmnet_tpu_torch.ops.images import prepare_images
+from cnmnet_tpu_torch.parallel import collectives
+from cnmnet_tpu_torch.parallel.mesh import Mesh
+from cnmnet_tpu_torch.parallel.sharding import (
+    Spatial,
+    gather_frames,
+    shard_frames,
+    spatial_parallel,
+    tile_partition_safe,
+)
+from cnmnet_tpu_torch.parallel.tiled_ops import depth_to_normal_tiled
 
 WIRE_DTYPES = {"float32": torch.float32, "float16": torch.float16, "bfloat16": torch.bfloat16}
+# What rank 0 of a mesh session broadcasts before each bucket batch: the
+# operation, the images' shape [B, V, H, W, 3] and their dtype.
+_RUN, _CLOSE = 1, 0
+_IMAGE_DTYPES = (torch.uint8, torch.float32)
 
 
 def resolve_device(device) -> torch.device:
@@ -155,6 +182,7 @@ class InferenceSession:
         wire_dtype: str = "float32",
         compute_dtype: Optional[str] = None,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         if not outputs:
             raise ValueError("outputs must name at least one of "
@@ -178,6 +206,10 @@ class InferenceSession:
                 compute_dtype = "bfloat16"  # serving default on the card
         self.compute_dtype = getattr(torch, compute_dtype)
         self.buckets = tuple(sorted(set(int(b) for b in batch_buckets)))
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            d = self.mesh.data
+            self.buckets = tuple(sorted({-(-b // d) * d for b in self.buckets}))
         self.k_size = k_size or self.cfg.model.k_size
 
         self._lock = threading.Lock()
@@ -206,9 +238,12 @@ class InferenceSession:
         return layout
 
     @torch.inference_mode()
-    def _forward(self, images: torch.Tensor, cams: torch.Tensor, layout) -> torch.Tensor:
-        """One bucket batch on the device -> the packed ``[B, H, W, C]`` wire."""
-        out = self.model(prepare_images(images), cams)
+    def _forward(self, images: torch.Tensor, cams: torch.Tensor, layout,
+                 spatial: Optional[Spatial] = None) -> torch.Tensor:
+        """One bucket batch on the device -> the packed ``[B, H, W, C]`` wire
+        (of this rank's rows with ``spatial``)."""
+        with spatial_parallel(self.model, spatial):
+            out = self.model(prepare_images(images), cams)
         if out.idepth_refined is not None:
             idepth, prob = out.idepth_refined, out.prob_map
         else:  # 2-view path: single-pair disp1, no occlusion head
@@ -217,9 +252,12 @@ class InferenceSession:
         parts = {"idepth": idepth, "depth": depth[..., None], "prob": prob}
         if any(name == "normal" for name, _ in layout):
             K_inv = invert_intrinsics(cams[:, 0, 1, :3, :3])
-            parts["normal"], _ = dispatch.depth_to_normal(
-                depth, K_inv, self.k_size, backend=self.cfg.model.cv_backend
-            )
+            backend = self.cfg.model.cv_backend
+            if spatial is not None:
+                parts["normal"] = depth_to_normal_tiled(depth, K_inv, spatial, self.k_size, backend)
+            else:
+                parts["normal"], _ = dispatch.depth_to_normal(depth, K_inv, self.k_size,
+                                                              backend=backend)
         packed = torch.cat([parts[name].float() for name, _ in layout], -1)
         if self.wire_dtype != packed.dtype:
             fin = torch.finfo(self.wire_dtype)
@@ -237,6 +275,8 @@ class InferenceSession:
         layout = self._layout(V)
         img = torch.from_numpy(np.ascontiguousarray(images))
         cam = torch.from_numpy(np.ascontiguousarray(cams))
+        if self.mesh is not None:
+            return Handle(self._lead(img, cam).cpu(), None, layout, B)
         if self.device.type != "cuda":
             return Handle(self._forward(img, cam, layout), None, layout, B)
         img = img.pin_memory().to(self.device, non_blocking=True)
@@ -247,6 +287,64 @@ class InferenceSession:
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(self.device))
         return Handle(wire, done, layout, B)
+
+    # -- serving on a mesh -------------------------------------------------
+
+    def _mesh_step(self, img: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
+        """Every rank: its frames and rows of a bucket batch on the device,
+        and the whole batch's wire gathered back."""
+        spatial, img, cam = shard_frames(self.mesh, img, cam)
+        packed = self._forward(img.contiguous(), cam, self._layout(img.shape[1]), spatial)
+        return gather_frames(self.mesh, spatial, packed)
+
+    def _broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        return collectives.broadcast_(t, self.mesh.ranks[0], self.mesh.mesh_group)
+
+    def _header(self, op: int, img: Optional[torch.Tensor] = None) -> torch.Tensor:
+        shape = list(img.shape) if img is not None else [0] * 5
+        dtype = _IMAGE_DTYPES.index(img.dtype) if img is not None else 0
+        return torch.tensor([op] + shape + [dtype], dtype=torch.int64, device=self.device)
+
+    def _lead(self, img: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
+        """Rank 0: check the batch, send it to the followers, run it."""
+        if img.dtype not in _IMAGE_DTYPES:
+            raise ValueError(f"images must be uint8 or float32, got {img.dtype}")
+        H, W = img.shape[2], img.shape[3]
+        if self.mesh.tile > 1:
+            safe, reason = tile_partition_safe(H, self.mesh.tile)
+            if not safe:
+                raise ValueError(f"unsafe tile axis for serving: {reason}")
+            Spatial(self.mesh, H, W)  # a height the row plan refuses raises here
+        img, cam = img.to(self.device), cam.to(self.device)
+        self._broadcast(self._header(_RUN, img))
+        self._broadcast(img)
+        self._broadcast(cam)
+        return self._mesh_step(img, cam)
+
+    def follow(self) -> int:
+        """A follower rank's loop: run each bucket batch rank 0 sends until
+        it closes; returns the number of batches served."""
+        if self.mesh is None or self.mesh.rank == 0:
+            raise RuntimeError("follow() is for the ranks of a mesh session other than rank 0")
+        served = 0
+        while True:
+            header = self._broadcast(self._header(_CLOSE)).tolist()
+            if header[0] == _CLOSE:
+                return served
+            shape = header[1:6]
+            img = self._broadcast(torch.empty(shape, dtype=_IMAGE_DTYPES[header[6]],
+                                              device=self.device))
+            cam = self._broadcast(torch.empty(shape[:2] + [2, 4, 4], dtype=torch.float32,
+                                              device=self.device))
+            self._mesh_step(img, cam)
+            served += 1
+
+    def close(self) -> None:
+        """Rank 0 of a mesh session: end the followers' loops (nothing to do
+        without a mesh)."""
+        if self.mesh is not None and self.mesh.rank == 0:
+            with self._lock:
+                self._broadcast(self._header(_CLOSE))
 
     def fetch(self, handle: Handle) -> Dict[str, np.ndarray]:
         """Wait for a dispatched batch and unpack its wire."""
@@ -261,9 +359,15 @@ class InferenceSession:
             out[name] = (a[..., 0] if nc == 1 else a).astype(np.float32)
         return out
 
+    def _check_leader(self):
+        if self.mesh is not None and self.mesh.rank != 0:
+            raise RuntimeError(f"rank {self.mesh.rank} of a mesh session follows (follow()); "
+                               "rank 0 answers requests")
+
     def predict_async(self, images: np.ndarray, cams: np.ndarray) -> Handle:
         """Dispatch one batch of at most the top bucket and return its
         handle at once; ``fetch(handle)`` gives ``predict``'s result."""
+        self._check_leader()
         images, cams = _check_batch(images, cams)
         if images.shape[0] > self.buckets[-1]:
             raise ValueError(f"predict_async batch {images.shape[0]} exceeds the top bucket "
@@ -272,6 +376,7 @@ class InferenceSession:
             return self._dispatch(images, cams)
 
     def predict(self, images: np.ndarray, cams: np.ndarray) -> Dict[str, np.ndarray]:
+        self._check_leader()
         images, cams = _check_batch(images, cams)
         top = self.buckets[-1]
         with self._lock:

@@ -16,27 +16,39 @@ statistics move once per microbatch, chained), the gradients and metrics
 are averaged, and one update follows.
 
 ``make_train_step(cfg, mesh)`` with a ``parallel/mesh.Mesh`` of several
-ranks is the data-parallel step: each rank passes its own samples, and the
-step computes what the one-process step computes on the global batch (the
-JAX step is one program over it):
+ranks is the distributed step: each rank passes the samples of its data
+index (the ranks of one data index, the tile axis, pass the same ones),
+and the step computes what the one-process step computes on the global
+batch (the JAX step is one program over it):
 
-* the BatchNorm layers take their statistics over the data group
+* under a tile axis above 1 each rank takes its rows of the image fields
+  (``parallel/sharding.shard_rows``, by the ``RowPlan`` of the batch's
+  height) and the model and the loss run on them
+  (``sharding.spatial_parallel``): every windowed layer fetches the rows it
+  reads, the cost volume reads the whole source, depth->normal its halo;
+* the BatchNorm layers take their statistics over the whole mesh
   (``parallel/sharding.data_parallel``) and move their running statistics
   by them;
 * every loss term is the global batch's (``train/losses.py``), so each
   rank holds the same loss and metrics;
-* the gradients are averaged over the data group by one all-reduce before
-  the optimizer (the all-reduces inside the loss make each rank's gradient
-  ``world`` times its samples' share), so ``grad_clip_norm`` and
-  ``grad_norm`` see the global gradient; under ``grad_accum`` that is one
-  all-reduce per update, after the microbatches. Microbatch ``i`` is then
-  every rank's ``i``-th local microbatch: the one-process step on the
-  global batch ordered so that its microbatches are those unions;
-* the parameters and statistics are broadcast from the first rank of the
-  data group at the first step, as ``DistributedDataParallel`` does.
+* the gradients are averaged over the whole mesh by one all-reduce before
+  the optimizer, so ``grad_clip_norm`` and ``grad_norm`` see the global
+  gradient. Each rank's gradient is the mesh's size times its share
+  (``parallel/collectives.py``: the backward of every sum over a group
+  sums the gradients over it), so the mean is the whole gradient: the tile
+  ranks' partial gradients of the same samples add up, and the data
+  ranks' samples average. Under ``grad_accum`` that is one all-reduce per
+  update, after the microbatches. Microbatch ``i`` is then every data
+  rank's ``i``-th local microbatch: the one-process step on the global
+  batch ordered so that its microbatches are those unions;
+* the parameters and statistics are broadcast from the mesh's first rank
+  at the first step, as ``DistributedDataParallel`` does;
+* remat recomputes a block's forward, collectives included, in the same
+  order on every rank, and still throws away its BatchNorm statistics.
 
-A tile axis above 1 raises ``NotImplementedError``: row-sharding the conv
-stack waits for its ROADMAP item.
+A tile axis at a height that the JAX package's ``tile_partition_safe``
+refuses warns, as the JAX step does; the port's exchange is exact at any
+height its ``RowPlan`` accepts, and the plan raises for the rest.
 
 ``train_loop`` is the JAX epoch loop: checkpoints every
 ``train.ckpt_interval`` steps, at every epoch end and at ``max_steps``; a
@@ -45,7 +57,9 @@ previous step's loss, which is ready by then); SIGTERM and ^C raised as
 ``KeyboardInterrupt`` once the running step has finished; a checkpoint
 saved on every way out; ``train.steps_per_epoch``; resume from
 ``train.resume_dir``; scalars every ``train.print_interval`` steps and the
-image summaries (``_log_images``) every ten of those. The trainer sets no
+image summaries (``_log_images``, whose first sample's rows are gathered
+over the tile axis: every rank takes a logger, or none does) every ten of
+those. The trainer sets no
 global precision flag (TF32 stays as the caller left it). Under a mesh of
 several ranks every rank resumes from the same step of the one shared
 checkpoint directory, and the first rank alone writes each checkpoint
@@ -56,6 +70,7 @@ from __future__ import annotations
 
 import signal
 import time
+import warnings
 from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
@@ -64,8 +79,15 @@ import torch.distributed as dist
 
 from cnmnet_tpu_torch.config import Config
 from cnmnet_tpu_torch.ops.images import prepare_images
+from cnmnet_tpu_torch.parallel import collectives
 from cnmnet_tpu_torch.parallel.mesh import Mesh
-from cnmnet_tpu_torch.parallel.sharding import data_parallel
+from cnmnet_tpu_torch.parallel.sharding import (
+    Spatial,
+    data_parallel,
+    shard_rows,
+    spatial_parallel,
+    tile_partition_safe,
+)
 from cnmnet_tpu_torch.train.losses import LossWeights, compute_losses
 from cnmnet_tpu_torch.train.state import TrainState, create_train_state, global_norm, make_optimizer
 
@@ -89,17 +111,18 @@ def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 
 def loss_and_grads(model, batch: Dict[str, torch.Tensor], epoch: int, w: LossWeights,
-                   group=None):
+                   group=None, spatial: Optional[Spatial] = None):
     """One forward of ``model`` (in the mode it is in) on a batch of tensors:
     the gradient of the loss for every parameter, in ``model.parameters()``
     order (zeros where a parameter took no part), the loss terms, and the
-    detached maps of the image summaries. ``group``: a data group whose
-    ranks run the same call on their own samples (BatchNorm statistics and
-    loss terms over all of them; see the module docstring)."""
+    detached maps of the image summaries. ``group``: a mesh's group, whose
+    ranks run the same call on their own samples or rows (BatchNorm
+    statistics and loss terms over all of them; see the module docstring);
+    ``spatial``: this rank's rows under a tile axis (``batch`` holds them)."""
     params = list(model.parameters())
-    with data_parallel(model, group):
+    with data_parallel(model, group), spatial_parallel(model, spatial):
         out = model(prepare_images(batch["images"]), batch["cams"])
-        loss, metrics = compute_losses(out, batch, epoch, w, group)
+        loss, metrics = compute_losses(out, batch, epoch, w, group, spatial)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
     viz = {"pred_idepth_01": out.disps[0][:, 0].detach()}
     if out.idepth_refined is not None:
@@ -109,32 +132,20 @@ def loss_and_grads(model, batch: Dict[str, torch.Tensor], epoch: int, w: LossWei
     return grads, metrics, viz
 
 
-def _data_group(mesh: Optional[Mesh]):
-    """The data group of ``mesh`` (None: one process, or one data shard)."""
-    if mesh is None:
-        return None
-    if mesh.tile > 1:
-        raise NotImplementedError(
-            f"parallel.tile_axis={mesh.tile}: row-sharding the conv stack over a tile axis is "
-            "not ported (ROADMAP, Queue 1: the tile axis through the conv stack)")
-    return mesh.data_group
-
-
 def _all_reduce_mean(grads, group):
     """Average the gradients over ``group`` with one all-reduce of their
     concatenation."""
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat = collectives.all_reduce_(torch.cat([g.reshape(-1) for g in grads]), group)
     flat /= dist.get_world_size(group)
     return [x.view_as(g) for x, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
 
 @torch.no_grad()
 def _broadcast_state(model, group):
-    """Every parameter and buffer from the data group's first rank."""
+    """Every parameter and buffer from the group's first rank."""
     src = dist.get_global_rank(group, 0)
     for t in list(model.parameters()) + list(model.buffers()):
-        dist.broadcast(t, src, group=group)
+        collectives.broadcast_(t, src, group)
 
 
 def make_train_step(cfg: Config, mesh: Optional[Mesh] = None) -> Callable:
@@ -144,7 +155,13 @@ def make_train_step(cfg: Config, mesh: Optional[Mesh] = None) -> Callable:
     w = loss_weights_from_config(cfg)
     accum = max(1, int(cfg.train.grad_accum))
     opt = make_optimizer(cfg)
-    group = _data_group(mesh)
+    group = None if mesh is None else mesh.mesh_group
+    if mesh is not None and mesh.tile > 1:
+        safe, reason = tile_partition_safe(cfg.dataset.image_height, mesh.tile)
+        if not safe:
+            warnings.warn("the JAX package's partitioner miscompiles this tile axis at this "
+                          f"height ({reason}); the port's row exchange is exact at every height "
+                          "its RowPlan accepts", stacklevel=2)
     synced = False
 
     def step(state: TrainState, batch: Dict):
@@ -152,12 +169,15 @@ def make_train_step(cfg: Config, mesh: Optional[Mesh] = None) -> Callable:
         params = state.params()
         device = next(iter(params.values())).device
         batch = batch_to_device(batch, device)
+        spatial = Spatial.for_mesh(mesh, *batch["images"].shape[2:4])
+        batch = shard_rows(spatial, batch)
         state.model.train()
         if group is not None and not synced:
             _broadcast_state(state.model, group)
             synced = True
         if accum == 1:
-            grads, metrics, viz = loss_and_grads(state.model, batch, state.epoch, w, group)
+            grads, metrics, viz = loss_and_grads(state.model, batch, state.epoch, w, group,
+                                                 spatial)
         else:
             for k, v in batch.items():
                 if v.shape[0] % accum:
@@ -167,7 +187,7 @@ def make_train_step(cfg: Config, mesh: Optional[Mesh] = None) -> Callable:
             grads = metrics = viz = None
             for i in range(accum):
                 mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-                g, mm, vz = loss_and_grads(state.model, mb, state.epoch, w, group)
+                g, mm, vz = loss_and_grads(state.model, mb, state.epoch, w, group, spatial)
                 grads = g if grads is None else [a + b for a, b in zip(grads, g)]
                 metrics = mm if metrics is None else {k: metrics[k] + mm[k] for k in metrics}
                 if i == 0:
@@ -187,16 +207,19 @@ def make_train_step(cfg: Config, mesh: Optional[Mesh] = None) -> Callable:
     return step
 
 
-def _log_images(logger, step: int, batch, viz):
+def _log_images(logger, step: int, batch, viz, spatial: Optional[Spatial] = None):
     """The periodic image and histogram summaries of the first sample
     (``cnmnet_tpu/train/loop.py:_log_images``). Only that sample's maps
     cross to the host, so the histograms summarise it, where the JAX
-    package's summarise the batch. The copy runs outside the ``try``: a
+    package's summarise the batch; under a tile axis its rows are gathered
+    first (every rank calls this). The copy runs outside the ``try``: a
     device failure raises; a failure of the logging itself is printed and
     training goes on."""
     from cnmnet_tpu_torch.data.pipeline import denormalize_images
     from cnmnet_tpu_torch.obs.colorize import colorize_idepth, colorize_prob, normal_to_color
 
+    if spatial is not None:
+        viz = {k: spatial.gather(v[:1].contiguous(), 0, dim=1) for k, v in viz.items()}
     host = {k: v[:1].float().cpu().numpy() for k, v in viz.items()}
     first = {k: np.asarray(batch[k][:1].cpu() if isinstance(batch[k], torch.Tensor)
                            else batch[k][:1]) for k in ("images", "disparity", "normals")}
@@ -245,9 +268,9 @@ def train_loop(
     """Epoch driver: initialise (or resume), iterate, log, checkpoint; see
     the module docstring. ``logger`` is a ``MetricLogger`` (or anything with
     ``log_scalars``, ``log_image`` and ``log_histogram``); ``checkpointer`` a ``CheckpointManager`` (or
-    anything with ``save``, ``wait`` and ``restore``). ``mesh``: the data
-    mesh of a multi-process run; ``data_iter_fn`` then yields this rank's
-    samples."""
+    anything with ``save``, ``wait`` and ``restore``). ``mesh``: the mesh
+    of a multi-process run; ``data_iter_fn`` then yields the samples of this
+    rank's data index, all their rows."""
     state = create_train_state(cfg, cfg.train.seed, device)
     start_epoch = 0
     if checkpointer is not None and cfg.train.resume_dir:
@@ -310,7 +333,8 @@ def train_loop(
                     scalars["step_time"] = (time.monotonic() - tic) / (it + 1)
                     logger.log_scalars(global_step, scalars, prefix=f"epoch {epoch}")
                     if viz is not None and it % (cfg.train.print_interval * 10) == 0:
-                        _log_images(logger, global_step, batch, viz)
+                        spatial = Spatial.for_mesh(mesh, *batch["images"].shape[2:4])
+                        _log_images(logger, global_step, batch, viz, spatial)
                 if stop:
                     raise KeyboardInterrupt(stop[0])
             if checkpointer is not None:

@@ -12,12 +12,16 @@ The depth->normal calls go through ``kernels/dispatch``: the CUDA kernel
 (with its autograd Function) for CUDA tensors, the plain version for CPU
 tensors or with ``backend="torch"``.
 
-Under a data mesh (``group``, the data group) every term is the global
+Under a mesh (``group``, the whole mesh's group) every term is the global
 batch's value on every rank, as in the JAX step over the global batch:
 the masked and plain means, ``prob_map.mean()`` and the normal terms are
 reduced over the group as ``ops/losses.py`` says, so the NaN guard and the
 logged metrics see the global values. The depth->normal and CNM-target
-computations are per sample and stay local.
+computations are per sample: local on a data mesh; under a tile axis
+(``spatial``, this rank's rows of the batch's maps) depth->normal fetches
+its halo rows (``parallel/tiled_ops.depth_to_normal_tiled``, with a
+gradient), and the CNM target's plane means and the normal terms'
+per-sample means sum over the tile group.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from cnmnet_tpu_torch.ops.losses import (
     warped_depth_loss,
 )
 from cnmnet_tpu_torch.ops.planes import normal_by_planes
+from cnmnet_tpu_torch.parallel.tiled_ops import depth_to_normal_tiled
 
 # Inverse-depth -> depth floor: at initialisation the sigmoid heads
 # underflow at some pixels, and 1/idepth there makes depth terms of ~1e7
@@ -71,13 +76,16 @@ class LossWeights:
 
 
 def compute_losses(out: CNMOutputs, batch: Dict[str, torch.Tensor], epoch: int,
-                   w: LossWeights, group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   w: LossWeights, group=None,
+                   spatial=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics). ``batch`` holds tensors (NHWC): images
     [B,V,H,W,3], cams [B,V,2,4,4], depths [B,V,H,W], disparity [B,H,W],
     normals [B,H,W,3], instance_segs [B,S,H,W], planes_num [B]. The loss is
     in the graph; the metrics are its terms as detached scalars. ``group``:
-    the data group of a data mesh (the terms are then the global batch's)."""
-    g = group
+    the group of a mesh (the terms are then the global batch's); ``spatial``:
+    this rank's rows under a tile axis (the maps of ``out`` and ``batch``
+    are those rows)."""
+    g, sp = group, spatial
     gt_disp = batch["disparity"][..., None]
     gt_depth_ref = batch["depths"][:, 0][..., None]
 
@@ -88,8 +96,8 @@ def compute_losses(out: CNMOutputs, batch: Dict[str, torch.Tensor], epoch: int,
     loss_idepth_1 = 0.5 * (masked_l1(idepth01, gt_disp, group=g)
                            + masked_l1(idepth02, gt_disp, group=g))
     loss_idepth_234 = 0.5 * (
-        multiscale_idepth_loss([_at(d, 0) for d in out.disps], gt_disp, g)
-        + multiscale_idepth_loss([_at(d, 1) for d in out.disps], gt_disp, g)
+        multiscale_idepth_loss([_at(d, 0) for d in out.disps], gt_disp, g, sp)
+        + multiscale_idepth_loss([_at(d, 1) for d in out.disps], gt_disp, g, sp)
     )
     depth01 = _to_depth(idepth01)
     depth02 = _to_depth(idepth02)
@@ -144,21 +152,25 @@ def compute_losses(out: CNMOutputs, batch: Dict[str, torch.Tensor], epoch: int,
 
     K = batch["cams"][:, 0, 1, 0:3, 0:3]
     K_inv = invert_intrinsics(K)
-    n01, _ = dispatch.depth_to_normal(depth01[..., 0], K_inv, w.k_size, backend=w.backend)
-    n02, _ = dispatch.depth_to_normal(depth02[..., 0], K_inv, w.k_size, backend=w.backend)
-    n_ref, _ = dispatch.depth_to_normal(depth_refined[..., 0], K_inv, w.k_size,
-                                        backend=w.backend)
+
+    def normals(depth):
+        if sp is not None:
+            return depth_to_normal_tiled(depth[..., 0], K_inv, sp, w.k_size, w.backend)
+        return dispatch.depth_to_normal(depth[..., 0], K_inv, w.k_size, backend=w.backend)[0]
+
+    n01, n02, n_ref = normals(depth01), normals(depth02), normals(depth_refined)
 
     gt_normal = batch["normals"]
     if w.use_normal_refined_by_planes:
-        target_normal = normal_by_planes(gt_normal, batch["instance_segs"], batch["planes_num"])
+        target_normal = normal_by_planes(gt_normal, batch["instance_segs"], batch["planes_num"],
+                                         spatial=sp)
     else:
         target_normal = gt_normal
     valid = batch["depths"][:, 0] > 0.1
 
-    ln01, ang01 = surface_normal_loss(n01, target_normal, valid, group=g)
-    ln02, ang02 = surface_normal_loss(n02, target_normal, valid, group=g)
-    ln_ref, ang_ref = surface_normal_loss(n_ref, target_normal, valid, group=g)
+    ln01, ang01 = surface_normal_loss(n01, target_normal, valid, group=g, spatial=sp)
+    ln02, ang02 = surface_normal_loss(n02, target_normal, valid, group=g, spatial=sp)
+    ln_ref, ang_ref = surface_normal_loss(n_ref, target_normal, valid, group=g, spatial=sp)
     loss_normal_depth = 0.5 * (ln01 + ln02)
     loss_normal_depth_refined = ln_ref
     mean_angle = (ang01 + ang02 + ang_ref) / 3.0
@@ -168,7 +180,7 @@ def compute_losses(out: CNMOutputs, batch: Dict[str, torch.Tensor], epoch: int,
     for v in (1, 2):
         pose = _mm(_at(batch["cams"], v)[:, 0], ref_E_inv)[:, :3]  # ref -> src v
         warped.append(warped_depth_loss(depth_refined[..., 0], _at(batch["depths"], v), pose,
-                                        K, K_inv, group=g))
+                                        K, K_inv, group=g, spatial=sp))
     warped_1, warped_2 = warped
 
     base = loss_idepth_1 + loss_depth_1 + loss_depth_refined + loss_idepth_refined

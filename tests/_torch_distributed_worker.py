@@ -5,8 +5,8 @@
 Joins a gloo process group on ``tcp://127.0.0.1:PORT`` and runs, in order,
 on the CPU at 32x64 (8 planes, k = 5):
 
-1. ``ops``: the halo exchange and both tiled ops over a 1 x WORLD mesh,
-   against the untiled port ops on the global image;
+1. ``ops``: the row fetch of a halo and both tiled ops over a 1 x WORLD
+   mesh (at 64 rows), against the untiled port ops on the global image;
 2. ``step`` and ``accum``: one data-parallel train step (``grad_accum`` 1
    and 2, in f64: see ``one_step``) of a WORLD x 1 mesh whose ranks hold
    samples with different numbers of valid ground-truth pixels, against
@@ -53,8 +53,8 @@ def tiny_cfg(accum=1):
     return cfg
 
 
-def scenes(n, seed):
-    ds = SyntheticScenes(num_samples=n, height=H, width=W, view_num=3, seed=seed)
+def scenes(n, seed, height=H):
+    ds = SyntheticScenes(num_samples=n, height=height, width=W, view_num=3, seed=seed)
     batch = collate([ds[i] for i in range(n)])
     batch.pop("index")
     batch["images"] = normalize_images(batch["images"])
@@ -74,20 +74,26 @@ def global_batch():
 
 def ops(mesh, world, rank):
     """Largest differences of each rank's tiled results from the untiled
-    op's rows (0 = bit-equal)."""
+    op's rows (0 = bit-equal), at 64 rows (the least height whose row plan
+    splits over two ranks at every level)."""
     rng = np.random.default_rng(3)
-    h = H // world
-    rows = slice(rank * h, (rank + 1) * h)
-    x = torch.from_numpy(rng.standard_normal((2, H, W, 9)).astype(np.float32))
-    got = sharding.halo_exchange_rows(x[:, rows], K // 2, mesh)
-    pad = torch.nn.functional.pad(x, (0, 0, 0, 0, K // 2, K // 2))
-    want = pad[:, rank * h:rank * h + h + 2 * (K // 2)]
+    rows_h = 64
+    spatial = sharding.Spatial(mesh, rows_h, W)
+    a, b = spatial.rows(0)
+    rows = slice(a, b)
+    halo = K // 2
+    x = torch.from_numpy(rng.standard_normal((2, rows_h, W, 9)).astype(np.float32))
+    got = sharding.fetch_rows(x[:, rows], spatial.plan.ranges[0],
+                              [(c - halo, d + halo) for c, d in spatial.plan.ranges[0]], rank,
+                              mesh.tile_group, 1)
+    pad = torch.nn.functional.pad(x, (0, 0, 0, 0, halo, halo))
+    want = pad[:, a:b + 2 * halo]
     out = {"halo": float((got - want).abs().max())}
 
-    batch = scenes(2, 11)
+    batch = scenes(2, 11, rows_h)
     depth = torch.from_numpy(batch["depths"][:, 0])
     kinv = invert_intrinsics(torch.from_numpy(batch["cams"][:, 0, 1, :3, :3]))
-    normals = tiled_ops.depth_to_normal_tiled(depth[:, rows].contiguous(), kinv, mesh, K)
+    normals = tiled_ops.depth_to_normal_tiled(depth[:, rows].contiguous(), kinv, spatial, K)
     want, _ = dispatch.depth_to_normal(depth, kinv, K)
     out["normals"] = float((normals - want[:, rows]).abs().max())
 
@@ -95,7 +101,7 @@ def ops(mesh, world, rank):
     cams = torch.from_numpy(batch["cams"])
     ref_cam, src_cam = camera_from_array(cams[:, 0]), camera_from_array(cams[:, 1])
     vol = tiled_ops.cost_volume_tiled(images[:, 0, rows], images[:, 1, rows], ref_cam, src_cam,
-                                      mesh, num_planes=PLANES)
+                                      spatial, num_planes=PLANES)
     want = dispatch.cost_volume(images[:, 0], images[:, 1], ref_cam, src_cam, num_planes=PLANES)
     out["cost_volume"] = float((vol - want[:, rows]).abs().max())
     return out

@@ -13,7 +13,7 @@
   ``.pred.npz`` arrays), and ``events.jsonl`` (the exported scalars).
   No JAX model is compiled here.
 * Without a card the default device raises; a training configuration with
-  a tile axis raises ``NotImplementedError``.
+  a tile axis reaches the process group.
 """
 
 import argparse
@@ -100,13 +100,26 @@ def test_the_default_device_needs_a_card(argv):
         cli.main(argv)
 
 
-def test_multi_process_training_waits_for_the_distribution_slice(tmp_path):
-    """Multi-process training runs (``tests/test_torch_distributed.py``); a
-    tile axis, which would row-shard the conv stack, still waits for its
-    ROADMAP item and raises before any process group is joined."""
-    with pytest.raises(NotImplementedError, match="tile axis through the conv stack"):
+def test_multi_process_training_waits_for_the_distribution_slice(tmp_path, monkeypatch):
+    """Multi-process training runs, a tile axis included
+    (``tests/test_torch_distributed.py``, ``tests/test_torch_tiled_serve.py``):
+    ``parallel.tile_axis=2`` reaches the process group with a coordinator
+    address, and without one it raises before anything runs, since its rows
+    split over that many processes."""
+    seen = []
+
+    def join(cfg, device):
+        seen.append(cfg.parallel.tile_axis)
+        raise RuntimeError("joined")
+
+    monkeypatch.setattr(cli, "_join_processes", join)
+    with pytest.raises(RuntimeError, match="joined"):
         cli.main(["train", "--synthetic", "--device", "cpu", "parallel.coordinator_address=h:1",
                   "parallel.tile_axis=2", f"train.log_dir={tmp_path}/logs"])
+    assert seen == [2]
+    with pytest.raises(ValueError, match="parallel.coordinator_address"):
+        cli.main(["train", "--synthetic", "--device", "cpu", "parallel.tile_axis=2",
+                  f"train.log_dir={tmp_path}/logs"])
 
 
 def test_python_dash_m_runs_the_cli():

@@ -5,8 +5,8 @@ group, as ``cnmnet_tpu_torch.cli train`` joins one on several cards, and
 hold the collective paths to the one-process computation on the global
 data, at 32x64 with 8 planes and k = 5:
 
-* the halo exchange and both tiled ops over a 1 x 2 mesh: bit-equal to
-  the untiled port ops' rows;
+* the row fetch of a halo and both tiled ops over a 1 x 2 mesh (64
+  rows): bit-equal to the untiled port ops' rows;
 * one data-parallel train step over a 2 x 1 mesh, and one with
   ``grad_accum=2``, whose ranks hold different numbers of valid
   ground-truth pixels (the hazard of averaging per-rank masked means):

@@ -4,8 +4,8 @@ CPU mesh, every shard run in this one process.
 * ``mesh``: the port's rank layout is the JAX mesh's device layout
   (``np.asarray(devices).reshape(data, tile)``) for 8 ranks; with no
   process group, ``make_mesh`` is the 1x1 mesh and keeps the JAX asserts.
-* ``sharding``: the per-shard halo functions at tile 2 and 4 give each
-  shard exactly what JAX ``halo_exchange_rows`` gives it under
+* ``sharding``: the per-shard row fetch of a halo at tile 2 and 4 gives
+  each shard exactly what JAX ``halo_exchange_rows`` gives it under
   ``shard_map`` (atol 0); ``batch_shard`` slices dim 0.
 * ``tiled_ops``: the per-shard computations at tile 2 and 4, concatenated,
   are bit-equal to the port's untiled op, and match the JAX tiled op
@@ -100,13 +100,14 @@ def test_batch_shards():
 
 
 def _port_halos(shards, halo, dim):
-    """Every shard's rows with its neighbours' edges, as the collective
-    wrapper assembles them on each rank."""
-    edges = [sharding.edge_rows(s, halo, dim) for s in shards]
-    n = len(shards)
-    return [sharding.halo_rows(s, edges[i - 1][1] if i > 0 else None,
-                               edges[i + 1][0] if i < n - 1 else None, halo, dim)
-            for i, s in enumerate(shards)]
+    """Every shard's rows with its neighbours' edges, as the row fetch
+    assembles them on each rank (its per-shard form)."""
+    ranges, a = [], 0
+    for s in shards:
+        ranges.append((a, a + s.shape[dim]))
+        a += s.shape[dim]
+    return [sharding.rows_from_shards(shards, ranges, (a - halo, b + halo), dim)
+            for a, b in ranges]
 
 
 @pytest.mark.parametrize("tile", [2, 4])
@@ -130,8 +131,13 @@ def test_halo_rows_match_jax(rng, tile):
 
 
 def test_halo_needs_at_most_the_shard():
-    with pytest.raises(ValueError, match="halo"):
-        sharding.edge_rows(torch.zeros(1, 3, 4), 4, -2)
+    """A halo that reaches past the neighbouring shard is refused, naming
+    the stage: the fetch takes rows from neighbours only."""
+    plan = tmesh.RowPlan(128, 4)
+    a, b = plan.rows(0, 2)
+    plan.check("halo", 0, (a - 32, b + 32), 2)
+    with pytest.raises(ValueError, match="halo: tile 2 of 4 .* beyond its neighbours"):
+        plan.check("halo", 0, (a - 33, b), 2)
 
 
 # -- tiled ops ----------------------------------------------------------------------
@@ -202,12 +208,14 @@ def test_tiled_ops_on_a_one_rank_mesh_are_the_untiled_ops(rng, sampling):
     mesh = tmesh.make_mesh()
     depth, K_inv = _depth(rng)
     d, ki = torch.from_numpy(depth), torch.from_numpy(K_inv)
-    assert torch.equal(tiled_ops.depth_to_normal_tiled(d, ki, mesh, 9),
+    spatial = sharding.Spatial(mesh, *depth.shape[1:])
+    assert torch.equal(tiled_ops.depth_to_normal_tiled(d, ki, spatial, 9),
                        dispatch.depth_to_normal(d, ki, 9)[0])
-    ref, src, c1, c2 = _pairs(rng)
+    ref, src, c1, c2 = _pairs(rng, H=32)  # a height the row plan takes
     t1, t2 = (Camera(torch.from_numpy(e), torch.from_numpy(k)) for e, k in (c1, c2))
     r, s = torch.from_numpy(ref), torch.from_numpy(src)
-    got = tiled_ops.cost_volume_tiled(r, s, t1, t2, mesh, num_planes=8, sampling=sampling)
+    spatial = sharding.Spatial(mesh, *ref.shape[1:3])
+    got = tiled_ops.cost_volume_tiled(r, s, t1, t2, spatial, num_planes=8, sampling=sampling)
     assert torch.equal(got, dispatch.cost_volume(r, s, t1, t2, num_planes=8, sampling=sampling))
     h = ref.shape[1] // 2
     lower = tiled_ops.cost_volume_shard(r[:, h:], s, t1, t2, h, num_planes=8, sampling=sampling)
@@ -216,5 +224,5 @@ def test_tiled_ops_on_a_one_rank_mesh_are_the_untiled_ops(rng, sampling):
 
 def test_data_sum_without_a_group_is_the_identity():
     x = torch.arange(3.0, requires_grad=True)
-    assert collectives.data_sum(x, None) is x
-    assert torch.equal(collectives.data_count(x, None), x.detach())
+    assert collectives.group_sum(x, None) is x
+    assert torch.equal(collectives.group_count(x, None), x.detach())
