@@ -128,8 +128,33 @@ source, in parallel), then:
    abs 0), and each rank's launch counters on each path (one cost volume
    and three depth->normals a step, one of each a flush and a batch).
 
+11. runs the offline tools, the native loader and imported checkpoints at
+   full width under PyTorch's defaults (``offline_phase``). It first looks
+   for ``g++`` and for ``jpeglib.h`` and ``png.h`` on the compiler's include
+   path and prints what it found. With them: (a) a raw ScanNet-layout scene
+   (30 frames at 480x640 ray-cast from a ``data/synthetic`` room, JPEGs
+   written by a small C helper against the same libjpeg) through ``cli
+   prep-cameras``, ``prep-planes`` and ``prep-list``, ``cli train`` on the
+   prepared tree for 3 steps with every sample on the native loader's path
+   (one cost volume and three depth->normals a step, finite losses), and
+   ``cli eval-scannet --planes`` on its checkpoint; (b) the native loader
+   built from ``data/native/loader.cc`` into ``build/``: its decode against
+   the arrays the JPEGs were written from (JPEG's loss), its normalised
+   RGB against its uint8 RGB, its depth exactly against ``read_png`` +
+   ``resize_nearest`` + the clamp, and ``load_frames`` ms per frame at 1
+   and 4 threads from 1296x968. Without the headers only the steps that
+   need no JPEG run: ``prep-cameras`` and ``prep-planes``. Then ``cli eval
+   --save-dir`` on a mock 7-Scenes tree and ``cli report`` over it (every
+   artifact PNG referenced by its sequence page), and (c) a reference
+   checkpoint through ``import_checkpoint --torch-ckpt`` and a converter
+   ``.npz`` through ``--npz``, each served by ``cli infer --checkpoint``
+   equal to ``InferenceSession(state_dict=...)`` on the same weights (max
+   abs 0), and one train step resumed from the ``.npz`` import, whose
+   restored moments equal the ones written. Each command with its seconds
+   and launches.
+
 Prints the build seconds, the kernel table as one JSON line (with each
-kernel's launches in phases 3, 6, 7, 8, 9 and 10, their total, and the
+kernel's launches in phases 3, 6, 7, 8, 9, 10 and 11, their total, and the
 tiled shards' times), the card's
 name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -2398,6 +2423,508 @@ def mesh_phase(torch, counters, smi, device="cuda", timeout=900, **sizes):
     return ranks
 
 
+# -- phase 11: the offline tools, the native loader and imported checkpoints --
+
+RAW_H, RAW_W, RAW_FRAMES = 480, 640, 30
+JPEG_QUALITY = 95
+# The native decode against the array the JPEG was written from, at quality
+# 95 with libjpeg's default 4:2:0 chroma on the raw scene's texture: JPEG's
+# loss, in levels of 255 (mean 0.56 and max 10 with libjpeg-turbo 62 on
+# x86-64; another libjpeg may round differently).
+JPEG_MEAN_TOL, JPEG_MAX_TOL = 1.5, 32
+# ``load_rgb_normalized`` against ``load_rgb_u8`` on the same file: the u8
+# path rounds the resized value to a level, half a level at most (divided
+# by the smallest ImageNet std), plus the f32 rounding of the two affines.
+U8_ROUND_TOL = 0.5 / 255 / 0.224 + 1e-5
+
+# The fixture writer of the raw scene's JPEGs, built against the same libjpeg
+# as the native loader: not a part of the port.
+JPEG_WRITER = r"""
+#include <stdio.h>
+#include <jpeglib.h>
+int write_jpeg(const char* path, const unsigned char* rgb, int w, int h, int quality) {
+  FILE* f = fopen(path, "wb");
+  if (!f) return 1;
+  struct jpeg_compress_struct c;
+  struct jpeg_error_mgr e;
+  c.err = jpeg_std_error(&e);
+  jpeg_create_compress(&c);
+  jpeg_stdio_dest(&c, f);
+  c.image_width = w;
+  c.image_height = h;
+  c.input_components = 3;
+  c.in_color_space = JCS_RGB;
+  jpeg_set_defaults(&c);
+  jpeg_set_quality(&c, quality, TRUE);
+  jpeg_start_compress(&c, TRUE);
+  while (c.next_scanline < c.image_height) {
+    JSAMPROW row = (JSAMPROW)(rgb + (size_t)c.next_scanline * w * 3);
+    jpeg_write_scanlines(&c, &row, 1);
+  }
+  jpeg_finish_compress(&c);
+  jpeg_destroy_compress(&c);
+  fclose(f);
+  return 0;
+}
+"""
+
+
+def native_toolchain():
+    """What the native loader's build needs, looked up before building: the
+    path of ``g++`` and, for each of ``jpeglib.h`` and ``png.h``, the
+    directory of the compiler's include path that holds it (None where
+    absent). The phase decides by this, never by catching a build error."""
+    import os
+    import shutil
+
+    gxx = shutil.which("g++")
+    dirs = []
+    if gxx:
+        out = subprocess.run([gxx, "-E", "-x", "c++", "-", "-v"], input="", capture_output=True,
+                             text=True, timeout=60).stderr.splitlines()
+        if "#include <...> search starts here:" in out:
+            start = out.index("#include <...> search starts here:") + 1
+            dirs = [line.strip() for line in out[start:] if line.startswith(" ")]
+    found = {hdr: next((d for d in dirs if os.path.isfile(os.path.join(d, hdr))), None)
+             for hdr in ("jpeglib.h", "png.h")}
+    return gxx, found
+
+
+def build_jpeg_writer(directory):
+    """``write(path, rgb u8 [H, W, 3], quality)`` through ``JPEG_WRITER``,
+    compiled with gcc into ``directory``."""
+    import ctypes
+    import os
+
+    src = os.path.join(directory, "jpeg_writer.c")
+    lib = os.path.join(directory, "jpeg_writer.so")
+    with open(src, "w") as f:
+        f.write(JPEG_WRITER)
+    subprocess.run(["gcc", "-O2", "-shared", "-fPIC", src, "-o", lib, "-ljpeg"], check=True,
+                   capture_output=True, timeout=120)
+    fn = ctypes.CDLL(lib).write_jpeg
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+
+    def write(path, rgb, quality=JPEG_QUALITY):
+        rgb = np.ascontiguousarray(rgb, np.uint8)
+        assert fn(path.encode(), rgb.ctypes.data, rgb.shape[1], rgb.shape[0], quality) == 0, path
+
+    return write
+
+
+def write_raw_scene(scene, write_jpeg, frames=RAW_FRAMES, h=RAW_H, w=RAW_W, seed=11):
+    """A raw ScanNet-layout scene (``tests/test_prep_planes.py``'s
+    ``mock_scene`` layout) at ``h x w``: ``pose/`` (camera to world),
+    ``intrinsic/``, 16-bit ``depth/`` in mm, ``annotation/planes.npy`` (world
+    planes, offset times unit normal) with RGB-packed global plane ids in
+    ``annotation/segmentation/``, ``lg_normal/`` and, with a JPEG writer,
+    ``color/`` JPEGs (``rgb/`` links to it, the loader's name). The geometry
+    is one ``data/synthetic`` room ray-cast from a camera that moves 2 cm a
+    frame along x and turns slowly. Returns the world planes."""
+    import os
+
+    from cnmnet_tpu_torch.data.imageio import write_png
+    from cnmnet_tpu_torch.data.synthetic import SyntheticScenes
+
+    for sub in ("pose", "intrinsic", "depth", "lg_normal", "annotation/segmentation"):
+        os.makedirs(os.path.join(scene, sub))
+    ds = SyntheticScenes(num_samples=1, height=h, width=w, seed=seed)
+    rng = np.random.default_rng(seed)
+    planes = ds._planes(rng)
+    K = ds._camera(rng)
+    K4 = np.eye(4)
+    K4[:3, :3] = K
+    for name in ("intrinsic_color.txt", "intrinsic_depth.txt"):
+        np.savetxt(os.path.join(scene, "intrinsic", name), K4)
+    world = np.stack([p["n"] * p["d"] for p in planes]).astype(np.float32)
+    np.save(os.path.join(scene, "annotation", "planes.npy"), world)
+    if write_jpeg is not None:
+        os.makedirs(os.path.join(scene, "color"))
+        os.symlink("color", os.path.join(scene, "rgb"))
+    for i in range(frames):
+        E = np.eye(4, dtype=np.float32)
+        a = 0.004 * i
+        E[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        E[0, 3] = -0.02 * i
+        depth, normal, label, pts_w = ds._raycast(K, E, planes)
+        np.savetxt(os.path.join(scene, "pose", f"{i}.txt"), np.linalg.inv(E.astype(np.float64)))
+        write_png(os.path.join(scene, "depth", f"{i}.png"),
+                  np.round(depth * 1000).astype(np.uint16))
+        np.save(os.path.join(scene, "lg_normal", f"{i}.npy"), normal)
+        packed = label.astype(np.int64) + 1
+        seg = np.stack([packed // 65536, (packed // 256) % 256, packed % 256], -1)
+        write_png(os.path.join(scene, "annotation", "segmentation", f"{i}.png"),
+                  seg.astype(np.uint8))
+        if write_jpeg is not None:
+            rgb = np.round(ds._texture(pts_w, label) * 255).astype(np.uint8)
+            np.save(os.path.join(scene, "color", f"{i}.src.npy"), rgb)
+            write_jpeg(os.path.join(scene, "color", f"{i}.jpg"), rgb)
+    return world
+
+
+def native_phase(torch, smi, scene, write_jpeg, tmp):
+    """11b: the native loader on this host against the arrays the JPEGs
+    were written from (JPEG's loss), ``load_rgb_normalized`` against
+    ``load_rgb_u8``, ``load_depth_meters`` exactly against ``read_png`` +
+    ``resize_nearest`` + the clamp, and ``load_frames`` ms per frame at 1
+    and 4 threads from 1296x968 to 192x256."""
+    import os
+
+    from cnmnet_tpu_torch.data import native
+    from cnmnet_tpu_torch.data.imageio import read_png, resize_nearest, write_png
+
+    err_mean = err_max = norm_err = 0.0
+    for i in range(0, RAW_FRAMES, 7):
+        path = os.path.join(scene, "color", f"{i}.jpg")
+        src = np.load(os.path.join(scene, "color", f"{i}.src.npy")).astype(np.int32)
+        full = native.load_rgb_u8(path, RAW_W, RAW_H).astype(np.int32)  # no resize: the decode
+        diff = np.abs(full - src)
+        err_mean, err_max = max(err_mean, float(diff.mean())), max(err_max, int(diff.max()))
+        u8 = native.load_rgb_u8(path, W, H).astype(np.float32) / 255.0
+        f32 = native.load_rgb_normalized(path, W, H)
+        norm_err = max(norm_err, float(np.abs(f32 - (u8 - native.IMAGENET_MEAN)
+                                              / native.IMAGENET_STD).max()))
+        got = native.load_depth_meters(os.path.join(scene, "depth", f"{i}.png"), W, H, 0.1, 5.0)
+        want = resize_nearest(read_png(os.path.join(scene, "depth", f"{i}.png")), H, W)
+        want = want.astype(np.float32) * np.float32(0.001)
+        want[(want < np.float32(0.1)) | (want > np.float32(5.0))] = 0.0
+        assert np.array_equal(got, want), f"native depth of frame {i} differs"
+    print(f"  11b native decode (quality {JPEG_QUALITY}): against the source arrays mean |d| "
+          f"{err_mean:.4f} (tol {JPEG_MEAN_TOL}), max {err_max} levels (tol {JPEG_MAX_TOL}); "
+          f"load_rgb_normalized against load_rgb_u8 {norm_err:.3e} (tol {U8_ROUND_TOL:.3e}); "
+          f"load_depth_meters equal to read_png + resize_nearest + clamp")
+    assert err_mean <= JPEG_MEAN_TOL and err_max <= JPEG_MAX_TOL and norm_err <= U8_ROUND_TOL
+
+    big = os.path.join(tmp, "big")
+    os.makedirs(big)
+    rng = np.random.default_rng(3)
+    y, x = np.mgrid[:968, :1296]
+    rgbs, depths = [], []
+    for i in range(8):
+        tex = np.stack([128 + 90 * np.sin((x + 9 * i) / 13.0 + y / 29.0),
+                        128 + 90 * np.cos((x + 9 * i) / 23.0 - y / 17.0),
+                        128 + 80 * np.sin((x + y + 9 * i) / 11.0)], -1)
+        tex = np.clip(tex + rng.normal(0, 8, tex.shape), 0, 255).astype(np.uint8)
+        rgbs.append(os.path.join(big, f"{i}.jpg"))
+        write_jpeg(rgbs[-1], tex)
+        depths.append(os.path.join(big, f"{i}.png"))
+        write_png(depths[-1], (1500 + 10 * x + y).astype(np.uint16) % 6000)
+    ms = {}
+    for threads in (1, 4):
+        native.load_frames(rgbs, depths, W, H, num_threads=threads)  # warm the page cache
+        ts = []
+        for _ in range(3):
+            t = time.perf_counter()
+            native.load_frames(rgbs, depths, W, H, num_threads=threads)
+            ts.append(time.perf_counter() - t)
+        ms[threads] = statistics.median(ts) * 1e3 / len(rgbs)
+    print(f"  11b load_frames 1296x968 -> {H}x{W}, one JPEG and one depth PNG a frame: "
+          f"{ms[1]:.3f} ms/frame at 1 thread, {ms[4]:.3f} ms/frame at 4 threads [{smi}]")
+    return {"jpeg_mean": err_mean, "jpeg_max": err_max, "ms_per_frame": ms}
+
+
+def reference_state_dict(torch, model, seed):
+    """A reference-format checkpoint (``{depth_network_state_dict,
+    depth_refine_network_state_dict, global_step}``, Sequential names,
+    BatchNorm counters, DataParallel's prefix on the DepthNet), built as
+    ``tests/test_torch_import.py`` builds one: random values in the shapes
+    of ``model``'s tensors, heads scaled so their sigmoids stay unsaturated.
+    Returns it and the port ``state_dict`` that holds the same values."""
+    g = torch.Generator().manual_seed(seed)
+    port, ref = {}, {"depth_network_state_dict": {}, "depth_refine_network_state_dict": {}}
+    for name, t in model.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            value = torch.tensor(100)
+        elif name.endswith("running_var"):
+            value = torch.rand(t.shape, generator=g) + 0.5
+        elif name.endswith("weight") and t.dim() == 4:
+            fan_in = t.shape[1] * t.shape[2] * t.shape[3]
+            scale = 0.05 if "disp" in name or "prob" in name else 1.0
+            value = torch.randn(t.shape, generator=g) * (scale * (2.0 / fan_in) ** 0.5)
+        else:
+            value = torch.randn(t.shape, generator=g) * 0.1 + (1.0 if name.endswith("weight")
+                                                                else 0.0)
+        port[name] = value
+        net, _, rest = name.partition(".")
+        key = {"depth_net": "depth_network_state_dict",
+               "refine_net": "depth_refine_network_state_dict"}[net]
+        ref[key][("module." if net == "depth_net" else "") + rest] = value
+    ref["global_step"] = 1234
+    return ref, port
+
+
+def converter_npz(torch, model, seed, step):
+    """``tools/orbax_to_npz.py``'s layout from seeded port tensors: flax
+    keys (``models/transplant.key_map``, OIHW kernels back to HWIO), Adam's
+    moments under ``opt_state/{mu,nu}/``, ``step`` and ``epoch``. Returns the
+    arrays and the port ``state_dict`` and moments that they hold."""
+    from cnmnet_tpu_torch.models.transplant import key_map
+
+    g = torch.Generator().manual_seed(seed)
+    _, port = reference_state_dict(torch, model, seed)
+    arrays, moments = {}, {"mu": {}, "nu": {}}
+    for fkey, (tkey, transform) in key_map(model).items():
+        value = port[tkey].numpy()
+        inverse = (lambda a: np.transpose(a, (2, 3, 1, 0))) if value.ndim == 4 else (lambda a: a)
+        arrays[fkey] = inverse(value)
+        if fkey.startswith("params/"):
+            mu = torch.randn(port[tkey].shape, generator=g) * 1e-3
+            nu = torch.rand(port[tkey].shape, generator=g) * 1e-6
+            moments["mu"][tkey], moments["nu"][tkey] = mu, nu
+            arrays[f"opt_state/mu/{fkey[7:]}"] = inverse(mu.numpy())
+            arrays[f"opt_state/nu/{fkey[7:]}"] = inverse(nu.numpy())
+    arrays["step"], arrays["epoch"] = np.asarray(step), np.asarray(1)
+    return arrays, port, moments
+
+
+def import_phase(torch, counters, smi, tmp, size, device="cuda", h=H, w=W):
+    """11c: a reference checkpoint through ``--torch-ckpt`` and a converter
+    ``.npz`` through ``--npz``, each served by ``cli infer --checkpoint``
+    and held to ``InferenceSession(state_dict=...)`` on the same weights
+    (max abs 0); one train step resumed from the ``.npz`` import, whose
+    restored moments equal the ones written. Returns the launches and the
+    seconds per command."""
+    import glob
+    import os
+
+    from cnmnet_tpu_torch.config import Config, apply_overrides
+    from cnmnet_tpu_torch.data.pipeline import quantize_images_u8
+    from cnmnet_tpu_torch.data.synthetic import SyntheticScenes
+    from cnmnet_tpu_torch.serve import InferenceSession
+    from cnmnet_tpu_torch.train import import_checkpoint
+    from cnmnet_tpu_torch.train.checkpoint import CheckpointManager
+    from cnmnet_tpu_torch.train.state import build_model, create_train_state
+
+    cfg = apply_overrides(Config(), size)
+    model = build_model(cfg)
+    total = {n: 0 for n in counters}
+    seconds = {}
+    os.makedirs(f"{tmp}/frames")
+    scenes = SyntheticScenes(num_samples=4, height=h, width=w, view_num=3, seed=41)
+    frames = [scenes[i] for i in range(4)]
+    for i, f in enumerate(frames):
+        np.savez(f"{tmp}/frames/frame{i}.npz", images=quantize_images_u8(f["images"]),
+                 cams=f["cams"].astype(np.float32))
+    images = np.stack([quantize_images_u8(f["images"]) for f in frames])
+    cams = np.stack([f["cams"].astype(np.float32) for f in frames])
+
+    def serve_and_compare(name, ckpt_dir, state_dict):
+        out_dir = f"{tmp}/preds_{name}"
+        launches, seconds[f"infer {name}"], _ = run_cli(
+            torch, counters, smi, ["infer", "--inputs", f"{tmp}/frames/*.npz", "--out-dir",
+                                   out_dir, "--batch", "4", "--checkpoint", ckpt_dir,
+                                   "--device", device] + size, device)
+        assert launches == {n: 1 for n in counters}, launches
+        for n, v in launches.items():
+            total[n] += v
+        want = InferenceSession(cfg, state_dict=state_dict, batch_buckets=(1, 4),
+                                device=device).predict(images, cams)
+        assert all(np.isfinite(v).all() for v in want.values()), name
+        err = 0.0
+        for i in range(4):
+            with np.load(f"{out_dir}/frame{i}.pred.npz") as z:
+                assert set(z.files) == set(want)
+                err = max(err, max(float(np.abs(z[k] - want[k][i]).max()) for k in want))
+        print(f"  11c infer --checkpoint ({name} import) against InferenceSession(state_dict=) "
+              f"on the same weights: max abs {err:.3e} (must be 0)")
+        assert err == 0, err
+        assert len(glob.glob(f"{out_dir}/*.pred.npz")) == 4
+
+    # the reference's checkpoint
+    ref, port = reference_state_dict(torch, model, seed=51)
+    torch.save(ref, f"{tmp}/reference.pt")
+    t = time.perf_counter()
+    assert import_checkpoint.main(["--torch-ckpt", f"{tmp}/reference.pt", "--out",
+                                   f"{tmp}/from_reference"] + size) == 0
+    seconds["import --torch-ckpt"] = time.perf_counter() - t
+    assert CheckpointManager(f"{tmp}/from_reference", device="cpu").latest_step() == 1234
+    serve_and_compare("reference", f"{tmp}/from_reference", port)
+
+    # a converted JAX checkpoint
+    arrays, port, moments = converter_npz(torch, model, seed=52, step=5)
+    np.savez(f"{tmp}/state.npz", **arrays)
+    t = time.perf_counter()
+    assert import_checkpoint.main(["--npz", f"{tmp}/state.npz", "--out", f"{tmp}/from_npz"]
+                                  + size) == 0
+    seconds["import --npz"] = time.perf_counter() - t
+    serve_and_compare("npz", f"{tmp}/from_npz", port)
+
+    # resume from the npz import: the restored moments are the ones written
+    template = create_train_state(cfg, 0, device)
+    state = CheckpointManager(f"{tmp}/resume", device=device).restore(f"{tmp}/from_npz", template)
+    assert state.step == 5 and state.opt_state["count"] == 5
+    for m in ("mu", "nu"):
+        for name, value in moments[m].items():
+            assert torch.equal(state.opt_state[m][name].cpu(), value), (m, name)
+    del state, template
+    launches, seconds["train (resumed)"], _ = run_cli(
+        torch, counters, smi, ["train", "--synthetic", "--max-steps", "6", "--device", device]
+        + size + ["dataset.batch_size=2", f"train.resume_dir={tmp}/from_npz",
+                  f"train.checkpoint_dir={tmp}/resume", f"train.log_dir={tmp}/logs"], device)
+    assert launches == {"cost_volume": 1, "depth_to_normal": 3}, launches
+    for n, v in launches.items():
+        total[n] += v
+    assert CheckpointManager(f"{tmp}/resume", device="cpu").latest_step() == 6
+    print(f"  11c resumed the npz import at step 5 (moments equal to the ones written) and "
+          f"trained to step 6")
+    return total, seconds
+
+
+def offline_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, steps=3):
+    """Phase 11: the offline tools, the native loader and imported
+    checkpoints at full width, under PyTorch's defaults (cuDNN TF32 on).
+    With ``g++``, ``jpeglib.h`` and ``png.h`` on the host: a raw
+    ScanNet-layout scene through ``cli prep-cameras``, ``prep-planes`` and
+    ``prep-list``, ``cli train`` on the prepared tree fed by the native
+    loader (every sample on the native path, one cost volume and three
+    depth->normals a step, finite losses) and ``cli eval-scannet --planes``
+    on its checkpoint (11a), and the native decode against the source
+    arrays (11b). Without the headers the steps that need no JPEG run:
+    ``prep-cameras`` and ``prep-planes``. Then ``cli eval --save-dir`` on a
+    mock 7-Scenes tree and ``cli report`` over it, and the imported
+    checkpoints (11c). Returns the launches per kernel, the seconds per
+    command and 11b's figures."""
+    import glob
+    import os
+    import tempfile
+
+    from cnmnet_tpu_torch.data import native, scannet
+
+    gxx, headers = native_toolchain()
+    jpeg = gxx is not None and all(headers.values())
+    print(f"phase 11: g++ {gxx}; headers {headers}")
+    if not jpeg:
+        print("phase 11: the host lacks g++ or the libjpeg/libpng headers: the native "
+              "loader cannot be built, so the steps that read or write a JPEG are left out "
+              "(prep-list, train and eval-scannet on the prepared tree, the native decode)")
+    flags = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    t_phase = time.perf_counter()
+    size = [f"dataset.image_height={h}", f"dataset.image_width={w}",
+            f"model.num_planes={planes}", f"model.k_size={k}"]
+    total = {n: 0 for n in counters}
+    seconds, decode = {}, None
+
+    def count(name, launches, want):
+        assert launches == want, (name, launches, want)
+        for n_, v in launches.items():
+            total[n_] += v
+
+    with tempfile.TemporaryDirectory(prefix="cnm_offline_") as tmp:
+        root = f"{tmp}/scannet"
+        scene = f"{root}/scene0000_00"
+        write_jpeg = None
+        if jpeg:
+            t = time.perf_counter()
+            native_ok = native.available()
+            print(f"  native loader: built {native.library_path()} in "
+                  f"{time.perf_counter() - t:.2f} s")
+            assert native_ok, native.build_error()
+            write_jpeg = build_jpeg_writer(tmp)
+        t = time.perf_counter()
+        world = write_raw_scene(scene, write_jpeg)
+        print(f"  raw scene: {RAW_FRAMES} frames at {RAW_H}x{RAW_W}, {len(world)} world planes, "
+              f"{'with' if jpeg else 'without'} JPEGs, written in {time.perf_counter() - t:.2f} s")
+
+        # 11a: the raw scene through the offline tools
+        launches, seconds["prep-cameras"], lines = run_cli(
+            torch, counters, smi, ["prep-cameras", "--scene-dir", scene, "--out-width",
+                                   str(RAW_W), "--out-height", str(RAW_H)], device)
+        count("prep-cameras", launches, {n_: 0 for n_ in counters})
+        assert lines[-1] == f"wrote {RAW_FRAMES} camera files", lines
+        launches, seconds["prep-planes"], lines = run_cli(
+            torch, counters, smi, ["prep-planes", "--scene-dir", scene, "--num-workers", "4"],
+            device)
+        count("prep-planes", launches, {n_: 0 for n_ in counters})
+        written = int(lines[-1].split()[1])
+        per_frame = [len(np.load(p)) for p in
+                     sorted(glob.glob(f"{scene}/planercnn_para_003/*.npy"))]
+        print(f"  prep-planes: {written} of {RAW_FRAMES} frames annotated, planes per frame "
+              f"{sorted(set(per_frame))}")
+        assert written >= RAW_FRAMES - 2 and len(per_frame) == written
+        assert all(n >= 2 for n in per_frame)
+
+        trained = False
+        if jpeg:
+            launches, seconds["prep-list"], lines = run_cli(
+                torch, counters, smi, ["prep-list", "--root-dir", root, "--out",
+                                       f"{root}/train.txt", "--frame-stride", "1"], device)
+            count("prep-list", launches, {n_: 0 for n_ in counters})
+            samples = int(lines[-1].split()[1])
+            assert samples >= 2 * steps, lines
+            run = [f"dataset.root_dir={root}", f"dataset.list_filepath={root}/train.txt",
+                   f"train.log_dir={tmp}/logs", f"train.checkpoint_dir={tmp}/ckpt"]
+            with Spy(scannet, "ScanNetDataset") as built:
+                launches, seconds["train"], _ = run_cli(
+                    torch, counters, smi, ["train", "--max-steps", str(steps), "--device",
+                                           device, "dataset.batch_size=2",
+                                           "train.print_interval=1"] + size + run, device)
+            count("train", launches, {"cost_volume": steps, "depth_to_normal": 3 * steps})
+            paths = [ds.path for ds in built.results]
+            with open(f"{tmp}/logs/events.jsonl") as f:
+                losses = [json.loads(line)["loss"] for line in f
+                          if json.loads(line)["type"] == "scalars"]
+            print(f"  train on the prepared tree ({samples} samples): the loader's path "
+                  f"{paths}, losses {[round(v, 4) for v in losses]}, {seconds['train']:.2f} s "
+                  f"for {steps} steps")
+            assert paths == ["native"], paths
+            assert losses and all(np.isfinite(losses))
+            trained = True
+            with Spy(scannet, "ScanNetDataset") as built:
+                launches, seconds["eval-scannet"], lines = run_cli(
+                    torch, counters, smi, ["eval-scannet", "--planes", "--max-samples", "4",
+                                           "--checkpoint", "latest", "--device", device,
+                                           f"dataset.test_list_filepath={root}/train.txt"]
+                    + size + run, device)
+            count("eval-scannet", launches, {n_: 8 for n_ in counters})
+            assert [ds.path for ds in built.results] == ["native"]
+            metrics = dict(line.split(": ") for line in lines if ": " in line)
+            assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
+            decode = native_phase(torch, smi, scene, write_jpeg, tmp)
+
+        # cli eval --save-dir on a mock 7-Scenes tree, and cli report over it
+        seven = f"{tmp}/7scenes"
+        write_seven_scenes(seven, 30, seed=23)
+        ckpt = ["--checkpoint", "latest"] if trained else []
+        launches, seconds["eval"], _ = run_cli(
+            torch, counters, smi, ["eval", "--views", "3", "--max-frames-per-seq", "3",
+                                   "--save-dir", f"{tmp}/artifacts", "--device", device] + ckpt
+            + [f"dataset.root_dir={seven}", f"train.checkpoint_dir={tmp}/ckpt"] + size, device)
+        count("eval", launches, {n_: 6 for n_ in counters})
+        launches, seconds["report"], lines = run_cli(
+            torch, counters, smi, ["report", f"{tmp}/artifacts"], device)
+        count("report", launches, {n_: 0 for n_ in counters})
+        pngs = sorted(glob.glob(f"{tmp}/artifacts/*/*/*/*.png"))
+        pages = {}
+        for scene_, seq in EVAL_SEQS:
+            with open(f"{tmp}/artifacts/{scene_}/{seq}/index.html") as f:
+                pages[f"{scene_}/{seq}"] = f.read()
+        missing = [p for p in pngs if os.path.relpath(p, os.path.dirname(os.path.dirname(p)))
+                   not in pages["/".join(p.split(os.sep)[-4:-2])]]
+        with open(f"{tmp}/artifacts/index.html") as f:
+            index = f.read()
+        print(f"  report: {lines[-1][:100]}; {len(pngs)} artifact PNGs, each referenced by its "
+              f"sequence page: {not missing}")
+        assert pngs and not missing and all(f"{s}/index.html" in index for s in pages)
+
+        # 11c: imported checkpoints
+        launches, import_s = import_phase(torch, counters, smi, f"{tmp}/import",
+                                          size + [f"train.checkpoint_dir={tmp}/ckpt"], device,
+                                          h, w)
+        for n_, v in launches.items():
+            total[n_] += v
+        seconds.update(import_s)
+
+    torch.backends.cuda.matmul.allow_tf32 = flags["cuda.matmul.allow_tf32"]
+    torch.backends.cudnn.allow_tf32 = flags["cudnn.allow_tf32"]
+    print(f"phase 11: {time.perf_counter() - t_phase:.2f} s; seconds per command "
+          f"{ {n_: round(v, 3) for n_, v in seconds.items()} }; launches {total} [{smi}]")
+    return total, seconds, decode
+
+
 def main() -> int:
     import torch
 
@@ -2543,6 +3070,9 @@ def main() -> int:
     # mesh: two processes on the one card
     mesh = mesh_phase(torch, counters, smi)
 
+    # 11. the offline tools, the native loader and imported checkpoints
+    launches_offline, offline_s, decode = offline_phase(torch, counters, smi)
+
     def more(name):
         """The kernel's launches on the paths after phase 3, and its total."""
         paths = {"launches_train_step": per_step[name], "launches_eval": launches_eval[name],
@@ -2550,7 +3080,8 @@ def main() -> int:
                  "launches_bf16_step": launches_bf16[name],
                  "launches_remat_step": launches_remat[name],
                  "launches_tiled": launches_tiled[name], "launches_ddp_step": launches_ddp[name],
-                 "launches_ddp_cli": launches_ddp_cli[name]}
+                 "launches_ddp_cli": launches_ddp_cli[name],
+                 "launches_offline": launches_offline[name]}
         # phase 10: each rank's launches on each mesh path (its counters)
         on_mesh = {f"{cell} rank {r}": {p: n[name] for p, n in mesh[r][cell]["launches"].items()}
                    for cell in (f"{d}x{t}" for d, t in MESH_CELLS) for r in range(2)}
@@ -2588,7 +3119,10 @@ def main() -> int:
           f"{bf16_ms:.3f} ms (idle {bf16_idle}); remat at 480x640 batch 4 (GiB, ms) "
           f"{ {n: (round(g, 3), round(t, 3)) for n, (g, t) in remat.items()} }; tile 2 at "
           f"480x640 batch 4, per rank (GiB, ms) "
-          f"{[(round(r['1x2']['peak_gib'], 3), round(r['1x2']['bf16_ms'], 3)) for r in mesh]}")
+          f"{[(round(r['1x2']['peak_gib'], 3), round(r['1x2']['bf16_ms'], 3)) for r in mesh]}; "
+          f"offline seconds { {n: round(v, 3) for n, v in offline_s.items()} }; native "
+          f"load_frames ms/frame "
+          f"{decode['ms_per_frame'] if decode else 'not measured (no libjpeg/libpng headers)'}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

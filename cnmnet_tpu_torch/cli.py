@@ -14,8 +14,14 @@ The commands that run the model (``train``, ``eval``, ``eval-scannet``,
 device the model runs on, the port's way of asking for the CPU where the
 JAX CLI reads ``JAX_PLATFORMS``. Without a card, ``cuda`` raises
 (``serve.resolve_device``) instead of running on the CPU; pass ``--device
-cpu`` for a CPU run. ``cal-metrics`` and ``export-tb`` compute on the host
-and have no ``--device``.
+cpu`` for a CPU run. ``cal-metrics``, ``export-tb`` and the offline tools
+(``prep-cameras``, ``prep-planes``, ``prep-list``, ``report``) compute on
+the host and have no ``--device``:
+
+    python -m cnmnet_tpu_torch.cli prep-cameras --scene-dir /data/scannet/scene0000_00
+    python -m cnmnet_tpu_torch.cli prep-planes --scene-dir /data/scannet/scene0000_00
+    python -m cnmnet_tpu_torch.cli prep-list --root-dir /data/scannet --out /data/scannet/train.txt
+    python -m cnmnet_tpu_torch.cli report runs/eval_artifacts [--compare runs/other]
 
 ``train`` and ``eval`` run on several processes, one card each, when
 ``parallel.coordinator_address`` is set (``cnmnet_tpu/cli.py:139-187``):
@@ -41,9 +47,8 @@ same step. A tile axis above 1 needs that many processes.
 or ``sharding.tile_partition_safe`` refuses the height, each said in a
 printed line), the frame batch rounds up to a multiple of the data axis,
 and every process prints the metrics of the whole run. On one process the
-eval runs unsharded. The ``bench``, ``prep-cameras``, ``prep-planes``,
-``prep-list`` and ``report`` commands are not here: the first waits for
-the port's benchmark, the others for the offline tools (slice 6).
+eval runs unsharded. The ``bench`` command is not here: it waits for the
+port's benchmark.
 """
 
 from __future__ import annotations
@@ -115,9 +120,32 @@ def build_parser() -> argparse.ArgumentParser:
     inf.add_argument("--batch", type=int, default=8)
     inf.add_argument("overrides", nargs="*")
 
+    pc = sub.add_parser("prep-cameras", help="ScanNet pose+K -> cameras/*_cam.txt")
+    pc.add_argument("--scene-dir", required=True)
+    pc.add_argument("--out-width", type=int, default=256)
+    pc.add_argument("--out-height", type=int, default=192)
+
+    pp = sub.add_parser("prep-planes", help="PlaneRCNN annotations -> per-frame plane segs/params")
+    pp.add_argument("--scene-dir", required=True)
+    pp.add_argument("--num-workers", type=int, default=4)
+    pp.add_argument("--limit", type=int, default=None)
+
+    rp = sub.add_parser("report", help="HTML galleries over an eval artifact dir")
+    rp.add_argument("run_dir")
+    rp.add_argument("--compare", nargs="*", default=None,
+                    help="additional run dirs for a side-by-side page")
+    rp.add_argument("--image-width", type=int, default=256)
+
     tb = sub.add_parser("export-tb", help="convert a run dir's events.jsonl to TensorBoard format")
     tb.add_argument("run_dir")
     tb.add_argument("--out", default=None)
+
+    pl_ = sub.add_parser("prep-list", help="generate a train list")
+    pl_.add_argument("--root-dir", required=True)
+    pl_.add_argument("--out", required=True)
+    pl_.add_argument("--interval", type=int, default=10)
+    pl_.add_argument("--view-num", type=int, default=3)
+    pl_.add_argument("--frame-stride", type=int, default=5)
     return p
 
 
@@ -433,6 +461,44 @@ def cmd_infer(args) -> int:
     return 0
 
 
+def cmd_prep_cameras(args) -> int:
+    from cnmnet_tpu_torch.data.prep import make_camera_files
+
+    n = make_camera_files(args.scene_dir, args.out_width, args.out_height)
+    print(f"wrote {n} camera files")
+    return 0
+
+
+def cmd_prep_planes(args) -> int:
+    from cnmnet_tpu_torch.data.prep_planes import prepare_scene
+
+    n = prepare_scene(args.scene_dir, num_workers=args.num_workers, limit=args.limit)
+    print(f"wrote {n} frames")
+    return 0
+
+
+def cmd_prep_list(args) -> int:
+    from cnmnet_tpu_torch.data.prep import make_train_list
+
+    n = make_train_list(args.root_dir, args.out, interval=args.interval,
+                        view_num=args.view_num, frame_stride=args.frame_stride)
+    print(f"wrote {n} samples to {args.out}")
+    return 0
+
+
+def cmd_report(args) -> int:
+    from cnmnet_tpu_torch.evals.html_report import write_comparison, write_report
+
+    if args.compare:
+        out = os.path.join(args.run_dir, "comparison.html")
+        write_comparison(out, [args.run_dir] + list(args.compare), image_width=args.image_width)
+        print(f"wrote {out}")
+    else:
+        pages = write_report(args.run_dir, image_width=args.image_width)
+        print(f"wrote {len(pages)} sequence pages + index under {args.run_dir}")
+    return 0
+
+
 def cmd_export_tb(args) -> int:
     from cnmnet_tpu_torch.obs.tb_export import convert_run
 
@@ -446,7 +512,11 @@ COMMANDS = {
     "cal-metrics": cmd_cal_metrics,
     "eval-scannet": cmd_eval_scannet,
     "infer": cmd_infer,
+    "prep-cameras": cmd_prep_cameras,
+    "prep-planes": cmd_prep_planes,
+    "prep-list": cmd_prep_list,
     "export-tb": cmd_export_tb,
+    "report": cmd_report,
 }
 
 

@@ -21,14 +21,23 @@ Processing parity:
 * source views (ref id ± interval * i) load rgb + camera only;
 * plane-para coordinate swap y<->z (PlaneRCNN frame, `:218-229`).
 
-A copy of ``cnmnet_tpu/data/scannet.py`` for the port. PNGs are decoded
-and every image resized by ``data/imageio`` (numpy): the RGB as float32 in
-[0, 1] with cv2's float ``INTER_LINEAR``, depth, normals and plane fields
-with ``INTER_NEAREST``, as the JAX loader's cv2 path does. ScanNet's RGB
-frames are JPEG, which the port leaves to cv2: cv2 is imported inside
-``_load_rgb`` and the loader raises without it, as the JAX loader does.
-The JAX loader's ``use_native`` C++ decoder (``data/native/loader.cc``) is
-not ported (ROADMAP, slice 6).
+A copy of ``cnmnet_tpu/data/scannet.py`` for the port, with its two
+paths for the RGB and depth frames:
+
+* ``use_native=True`` (the default, as in JAX): where the native loader
+  builds (``data/native``, ``available()``), the RGB JPEGs are decoded,
+  resized and normalised (or kept uint8) and the depth PNGs decoded,
+  resized and clamped in C++, and the reference frame's size comes from its
+  JPEG header. This path needs no cv2 at all;
+* otherwise (``use_native=False``, or no native loader) the JAX loader's
+  cv2 path: JPEGs through cv2, imported inside ``_load_rgb`` only (the
+  loader raises without it, as the JAX loader does), PNGs through
+  ``data/imageio`` (numpy), the RGB resized as float32 in [0, 1] with cv2's
+  float ``INTER_LINEAR`` (``imageio.resize_linear_f32``).
+
+Normals and plane fields take ``imageio`` and ``INTER_NEAREST`` on both
+paths. ``ScanNetDataset.path`` ("native" or "cv2") says which path every
+sample of a dataset takes.
 """
 
 from __future__ import annotations
@@ -56,11 +65,20 @@ class ScanNetDataset:
         max_planes: int = 20,
         load_planes: bool = True,
         normal_source: str = "lg_normal",  # or "normal_color" (png /255 variant)
+        use_native: bool = True,
         wire_dtype: str = "float32",  # "uint8": raw RGB on the wire, 4x
         # smaller H2D; normalization then runs on the device
         # (ops/images.prepare_images)
     ):
         assert wire_dtype in ("float32", "uint8"), wire_dtype
+        # C++ decode/resize/normalize path (GIL-free); cv2 otherwise
+        self._native = None
+        if use_native:
+            from cnmnet_tpu_torch.data import native
+
+            if native.available():
+                self._native = native
+        self.path = "cv2" if self._native is None else "native"
         self.root_dir = root_dir
         self.view_num = view_num
         self.interval = interval
@@ -184,20 +202,36 @@ class ScanNetDataset:
                 continue
             view_ids.append(str(int(ref_id) + self.interval * i))
 
-        ref_rgb = self._load_rgb(scene, ref_id)
-        oh, ow = ref_rgb.shape[:2]
+        native = self._native
+        if native is not None:
+            oh, ow = native.jpeg_size(self._path(scene, "rgb", ref_id + ".jpg"))
+        else:
+            ref_rgb = self._load_rgb(scene, ref_id)
+            oh, ow = ref_rgb.shape[:2]
         sx, sy = self.w / ow, self.h / oh
 
         for vi, image_id in enumerate(view_ids):
-            rgb = self._load_rgb(scene, image_id) if vi else ref_rgb
-            rgbs.append(resize_linear_f32(rgb, self.h, self.w))
+            if native is not None:
+                rgb_path = self._path(scene, "rgb", image_id + ".jpg")
+                if self.wire_dtype == "uint8":
+                    rgbs.append(native.load_rgb_u8(rgb_path, self.w, self.h))
+                else:
+                    rgbs.append(native.load_rgb_normalized(rgb_path, self.w, self.h))
+            else:
+                rgb = self._load_rgb(scene, image_id) if vi else ref_rgb
+                rgbs.append(resize_linear_f32(rgb, self.h, self.w))
             cams.append(scale_cam_array(self._load_cam(scene, image_id), sx, sy))
             # depth for every view: the warped-depth loss needs source GT
             # depth (`train.py:287-293`) even though the reference's shipped
             # loader only returned the reference depth.
             try:
-                d = self._load_depth(scene, image_id)
-                depths.append(resize_nearest(d, self.h, self.w))
+                if native is not None:
+                    depths.append(native.load_depth_meters(
+                        self._path(scene, "depth", image_id + ".png"),
+                        self.w, self.h, 0.1, self.depth_scale))
+                else:
+                    d = self._load_depth(scene, image_id)
+                    depths.append(resize_nearest(d, self.h, self.w))
             except (FileNotFoundError, IOError):
                 depths.append(np.zeros((self.h, self.w), np.float32))
 
@@ -208,12 +242,14 @@ class ScanNetDataset:
         disparity = np.reciprocal(depth_ref + 1e-4)
         disparity[(disparity < 0.02) | (disparity > 3.0)] = 0.0
 
-        # [0, 1] floats here, converted to the wire format
+        # the native loader normalizes (or keeps u8) during resize; the cv2
+        # path carries [0, 1] floats here and converts to the wire format
         images = np.stack(rgbs)
-        if self.wire_dtype == "uint8":
-            images = quantize_images_u8(images)
-        else:
-            images = normalize_images(images)
+        if native is None:
+            if self.wire_dtype == "uint8":
+                images = quantize_images_u8(images)
+            else:
+                images = normalize_images(images)
         sample = {
             "images": images,
             "depths": np.stack(depths).astype(np.float32),

@@ -43,6 +43,14 @@ def camera_from_array(cam: torch.Tensor) -> Camera:
     return Camera(extrinsic=cam[..., 0, :, :], intrinsic=cam[..., 1, :3, :3])
 
 
+def camera_to_array(camera: Camera) -> torch.Tensor:
+    """Pack a :class:`Camera` back into the ``[..., 2, 4, 4]`` array format."""
+    batch = camera.extrinsic.shape[:-2]
+    k44 = camera.intrinsic.new_zeros(batch + (4, 4))
+    k44[..., :3, :3] = camera.intrinsic
+    return torch.stack([camera.extrinsic, k44], -3)
+
+
 def invert_intrinsics(K: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of ``[[fx, s, cx], [0, fy, cy], [0, 0, 1]]``."""
     fx = K[..., 0, 0]
@@ -71,6 +79,16 @@ def invert_se3(E: torch.Tensor) -> torch.Tensor:
 def relative_pose(ref: Camera, src: Camera) -> torch.Tensor:
     """``E_src @ E_ref^-1``: ref-camera coordinates -> src-camera coordinates."""
     return _mm(src.extrinsic, invert_se3(ref.extrinsic))
+
+
+def scale_intrinsics(K: torch.Tensor, scale_x: float, scale_y: float) -> torch.Tensor:
+    """Rescale K for a resized image (focal + principal point per axis).
+
+    Parity with `scannet/preprocess.py:76-87`.
+    """
+    scale = torch.tensor([[scale_x, 1.0, scale_x], [1.0, scale_y, scale_y], [1.0, 1.0, 1.0]],
+                         dtype=K.dtype, device=K.device)
+    return K * scale
 
 
 def pixel_grid(height: int, width: int, dtype=torch.float32, device=None,

@@ -1,8 +1,8 @@
 """Build the CUDA sources in ``csrc/`` with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``build/cnmnet_tpu_torch/<name>-<hash>.so``
-under the repository root, where ``<hash>`` covers the source, the headers
-beside it and the compiler flags, so an edited source builds anew and an
+under the repository root, where ``<hash>`` (``digest``) covers the source,
+the headers beside it and the compiler flags, so an edited source builds anew and an
 unchanged one is loaded as it is. Each library exposes a plain C interface
 (pointers and the stream as ``void*``, sizes as ``int``) and every entry
 returns ``cudaGetLastError()``.
@@ -47,12 +47,20 @@ def nvcc_path() -> str:
     )
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+def digest(paths, flags) -> str:
+    """16 hex digits of a hash over the flags and each path's name and bytes:
+    the part of a built library's name that changes with what it was built
+    from."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in paths:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    paths = sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]
+    return BUILD_DIR / f"{name}-{digest(paths, NVCC_FLAGS)}.so"
 
 
 def _start(name: str):

@@ -32,7 +32,7 @@ _REFINE_HEADS = (("depth_branch/DispHead_0", "disp_refine"),
                  ("prob_branch/DispHead_0", "prob"))
 
 
-def _units(use_refiner: bool):
+def conv_norm_units(use_refiner: bool):
     """(flax path, port prefix, conv index, norm index) for every conv+norm."""
     units = []
     for i in range(5):
@@ -57,7 +57,8 @@ def _units(use_refiner: bool):
     return units
 
 
-def _heads(use_refiner: bool):
+def head_units(use_refiner: bool):
+    """(flax path, port prefix) for every disparity head (conv with bias)."""
     heads = [(f"depth_net/{f}", f"depth_net.{t}") for f, t in _DEPTH_HEADS]
     if use_refiner:
         heads += [(f"refine_net/{f}", f"refine_net.{t}") for f, t in _REFINE_HEADS]
@@ -77,7 +78,7 @@ def key_map(model: nn.Module):
     ``"params/..."`` or ``"batch_stats/..."`` paths."""
     use_refiner = getattr(model, "refine_net", None) is not None
     out = {}
-    for fpath, tpre, ci, ni in _units(use_refiner):
+    for fpath, tpre, ci, ni in conv_norm_units(use_refiner):
         out[f"params/{fpath}/Conv_0/kernel"] = (f"{tpre}.{ci}.weight", _conv)
         if isinstance(model.get_submodule(f"{tpre}.{ni}"), nn.BatchNorm2d):
             norm = "BatchNorm_0"
@@ -87,7 +88,7 @@ def key_map(model: nn.Module):
             norm = "GroupNorm_0"
         out[f"params/{fpath}/{norm}/scale"] = (f"{tpre}.{ni}.weight", _same)
         out[f"params/{fpath}/{norm}/bias"] = (f"{tpre}.{ni}.bias", _same)
-    for fpath, tpre in _heads(use_refiner):
+    for fpath, tpre in head_units(use_refiner):
         out[f"params/{fpath}/Conv_0/kernel"] = (f"{tpre}.0.weight", _conv)
         out[f"params/{fpath}/Conv_0/bias"] = (f"{tpre}.0.bias", _same)
     return out

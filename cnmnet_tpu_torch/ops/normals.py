@@ -112,3 +112,16 @@ def depth_to_normal(
     nx, ny, nz = n.unbind(-1)
     norm = torch.sqrt(nx * nx + ny * ny + nz * nz + 1e-20)[..., None]
     return n / (norm + norm_eps), points
+
+
+def normal_mean_angle_deg(pred: torch.Tensor, gt: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mean angular error (degrees) between normal maps over valid pixels.
+
+    The golden-value check generalizing the reference's
+    `data_prepare/check_gt_normal.py`.
+    """
+    cos = (pred * gt).sum(-1) / (torch.linalg.vector_norm(pred, dim=-1)
+                                 * torch.linalg.vector_norm(gt, dim=-1) + 1e-8)
+    ang = torch.rad2deg(torch.arccos(cos.clamp(-1.0, 1.0)))
+    w = valid.to(pred.dtype)
+    return (ang * w).sum() / w.sum().clamp(min=1.0)

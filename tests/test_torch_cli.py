@@ -88,6 +88,24 @@ def test_overrides_give_the_jax_config(argv):
 
 
 @pytest.mark.parametrize("argv", [
+    ["prep-cameras", "--scene-dir", "s"],
+    ["prep-cameras", "--scene-dir", "s", "--out-width", "320", "--out-height", "240"],
+    ["prep-planes", "--scene-dir", "s", "--num-workers", "2", "--limit", "5"],
+    ["prep-list", "--root-dir", "r", "--out", "l.txt"],
+    ["prep-list", "--root-dir", "r", "--out", "l.txt", "--interval", "20", "--view-num", "5",
+     "--frame-stride", "10"],
+    ["report", "runs/a"],
+    ["report", "runs/a", "--compare", "runs/b", "runs/c", "--image-width", "128"],
+])
+def test_offline_commands_parse_as_jax(argv):
+    """The offline tools take the JAX parser's arguments and defaults, and no
+    ``--device``: they compute on the host."""
+    ours = vars(cli.build_parser().parse_args(argv))
+    assert ours == vars(jcli._parse(argv)) and "device" not in ours
+    assert cli.COMMANDS[argv[0]].__name__ == "cmd_" + argv[0].replace("-", "_")
+
+
+@pytest.mark.parametrize("argv", [
     ["train", "--synthetic", "--max-steps", "1"] + SMALL,
     ["eval", "dataset.root_dir=/nowhere"] + SMALL,
     ["eval-scannet", "--synthetic"] + SMALL,

@@ -108,3 +108,20 @@ def test_pixel2cam_full_inverse(rng):
     want = jg.pixel2cam(jnp.asarray(depth), jnp.asarray(K_inv))
     got = tg.pixel2cam(torch.from_numpy(depth), torch.from_numpy(K_inv))
     _close(got, want)
+
+
+@pytest.mark.parametrize("scale", [(0.25, 0.2), (256 / 1296, 192 / 968)])
+def test_scale_intrinsics(rng, scale):
+    K = _cams(rng, 3, 48, 64)[:, 0, 1, :3, :3]
+    want = jg.scale_intrinsics(jnp.asarray(K), *scale)
+    got = tg.scale_intrinsics(torch.from_numpy(K), *scale)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_camera_to_array_round_trip(cams):
+    for v in range(cams.shape[1]):
+        jc = jg.camera_from_array(jnp.asarray(cams[:, v]))
+        tc = tg.camera_from_array(torch.from_numpy(cams[:, v]))
+        got = tg.camera_to_array(tc).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jg.camera_to_array(jc)))
+        np.testing.assert_array_equal(got[..., 0, :, :], cams[:, v, 0])

@@ -266,3 +266,17 @@ def test_depth_to_normal_function_gradcheck(rng, monkeypatch):
     d = torch.from_numpy(depth.astype(np.float64)).requires_grad_()
     k = torch.from_numpy(K_inv.astype(np.float64)).requires_grad_()
     assert torch.autograd.gradcheck(lambda a, b: kn.DepthToNormal.apply(a, b, 5), (d, k))
+
+
+@pytest.mark.parametrize("all_invalid", [False, True])
+def test_normal_mean_angle_deg_matches_jax(rng, all_invalid):
+    pred = rng.standard_normal((2, 12, 16, 3)).astype(np.float32)
+    gt = rng.standard_normal((2, 12, 16, 3)).astype(np.float32)
+    gt[0, :2] = 0.0  # zero normals: the 1e-8 guard
+    valid = rng.random((2, 12, 16)) > (1.0 if all_invalid else 0.3)
+    want = jn.normal_mean_angle_deg(jnp.asarray(pred), jnp.asarray(gt), jnp.asarray(valid))
+    got = tn.normal_mean_angle_deg(torch.from_numpy(pred), torch.from_numpy(gt),
+                                   torch.from_numpy(valid))
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5, atol=0)
+    if all_invalid:
+        assert got.item() == 0.0

@@ -1,4 +1,6 @@
-"""The port's ScanNetDataset against the JAX package's cv2 path.
+"""The port's ScanNetDataset on its cv2 path (``use_native=False``) against
+the JAX package's cv2 path (``tests/test_torch_native.py`` holds the native
+paths against each other).
 
 The mock scene tree of ``test_scannet_loader.py`` (96x128 on disk, 48x64
 out), rewritten here, read by both loaders on both wires and with both
@@ -74,7 +76,8 @@ def mock_scannet(tmp_path_factory):
 def _pair(root, **kw):
     args = dict(list_filepath=os.path.join(root, "list.txt"), root_dir=root, image_height=H,
                 image_width=W)
-    return ScanNetDataset(**args, **kw), JScanNet(**args, use_native=False, **kw)
+    return (ScanNetDataset(**args, use_native=False, **kw),
+            JScanNet(**args, use_native=False, **kw))
 
 
 @pytest.mark.parametrize("normal_source", ["lg_normal", "normal_color"])
@@ -118,7 +121,7 @@ def test_without_cv2_the_jpeg_decode_raises(mock_scannet, monkeypatch):
     frames raise the JAX loader's error."""
     monkeypatch.setitem(sys.modules, "cv2", None)  # `import cv2` raises ImportError
     ds = ScanNetDataset(os.path.join(mock_scannet, "list.txt"), mock_scannet,
-                        image_height=H, image_width=W)
+                        image_height=H, image_width=W, use_native=False)
     assert ds._load_depth("scene0000_00", "10").shape == (H0, W0)
     with pytest.raises(RuntimeError, match="ScanNetDataset requires cv2"):
         ds[0]
