@@ -131,19 +131,21 @@ source, in parallel), then:
 11. runs the offline tools, the native loader and imported checkpoints at
    full width under PyTorch's defaults (``offline_phase``). It first looks
    for ``g++`` and for ``jpeglib.h`` and ``png.h`` on the compiler's include
-   path and prints what it found. With them: (a) a raw ScanNet-layout scene
-   (30 frames at 480x640 ray-cast from a ``data/synthetic`` room, JPEGs
-   written by a small C helper against the same libjpeg) through ``cli
-   prep-cameras``, ``prep-planes`` and ``prep-list``, ``cli train`` on the
-   prepared tree for 3 steps with every sample on the native loader's path
-   (one cost volume and three depth->normals a step, finite losses), and
-   ``cli eval-scannet --planes`` on its checkpoint; (b) the native loader
+   path and prints what it found. With them, or else where cv2 imports:
+   (a) a raw ScanNet-layout scene (30 frames at 480x640 ray-cast from a
+   ``data/synthetic`` room, JPEGs written by a small C helper against the
+   same libjpeg, or by cv2) through ``cli prep-cameras``, ``prep-planes``
+   and ``prep-list``, ``cli train`` on the prepared tree for 3 steps with
+   every sample on the native loader's path, or on the cv2 path of
+   ``ScanNetDataset(use_native=False)`` (one cost volume and three
+   depth->normals a step, finite losses), and ``cli eval-scannet --planes``
+   on its checkpoint; with the headers, (b) the native loader
    built from ``data/native/loader.cc`` into ``build/``: its decode against
    the arrays the JPEGs were written from (JPEG's loss), its normalised
    RGB against its uint8 RGB, its depth exactly against ``read_png`` +
    ``resize_nearest`` + the clamp, and ``load_frames`` ms per frame at 1
-   and 4 threads from 1296x968. Without the headers only the steps that
-   need no JPEG run: ``prep-cameras`` and ``prep-planes``. Then ``cli eval
+   and 4 threads from 1296x968. With neither only the steps that need no
+   JPEG run: ``prep-cameras`` and ``prep-planes``. Then ``cli eval
    --save-dir`` on a mock 7-Scenes tree and ``cli report`` over it (every
    artifact PNG referenced by its sequence page), and (c) a reference
    checkpoint through ``import_checkpoint --torch-ckpt`` and a converter
@@ -153,9 +155,24 @@ source, in parallel), then:
    restored moments equal the ones written. Each command with its seconds
    and launches.
 
+12. runs the measurement surface at full width under PyTorch's defaults
+   (``measure_phase``), each tool in this process through its ``main`` with
+   the launch counters around it: ``cli bench`` at 192x256 and 480x640,
+   ``bench_batched`` at batch 1, 4, 8, 16, ``bench_protocols`` (3, 5, 7
+   views at 192x256; 3 at 480x640), the roofline's eight phases (no share
+   above 100%), ``profile_forward`` at batch 8 and ``profile_train`` (bf16,
+   batch 2), ``bench_serving`` open loop at 0.25, 0.5, 0.75 and 0.9 of
+   phase 8a's requests/s (200 requests each), ``bench_cv`` (1, 8, 16 pairs
+   bf16; 4 pairs f32, the train step's volume) and ``bench_normals`` (max
+   abs 0 against the plain versions), ``check_gt_normal`` on 4 synthetic
+   samples, ``visualize`` from phase 11's ``.npz`` import, ``train_synth``
+   for 4 steps and ``two_stage_recipe`` with 3 steps a stage (its three
+   checks). Both launch counters must move in every tool that runs the
+   model.
+
 Prints the build seconds, the kernel table as one JSON line (with each
-kernel's launches in phases 3, 6, 7, 8, 9, 10 and 11, their total, and the
-tiled shards' times), the card's
+kernel's launches in phases 3, 6, 7, 8, 9, 10, 11 and 12, their total, the
+tiled shards' times and the times at the train shape), the card's
 name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Any failed check raises, and the script exits non-zero without that line.
@@ -172,27 +189,6 @@ import time
 import numpy as np
 
 H, W, P, K = 192, 256, 64, 9
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
-# outside the tensor cores.
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-# f32 operations per cost-volume output (pair, plane, pixel): X, Y, Z 6;
-# z + eps 1; two divisions 2; floors 2; fractions 2; 1 - f 2; four weights
-# 4; 12 tap products and 12 accumulations 24; three differences, abs and
-# two adds 8; the clip 4. The per-pixel terms are amortised over the planes.
-CV_FLOPS = 55
-
-
-def normals_flops(k: int) -> int:
-    """f32 operations per pixel of depth->normal: backprojection 18,
-    monomials 6, two separable k-tap passes over 9 sums 18 (k - 1), the
-    adjugate solve and normalisation 62."""
-    return 18 + 6 + 18 * (k - 1) + 62
-
-
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def synthetic_batch(n, height, width, views, seed):
@@ -494,47 +490,6 @@ def serve_phase(torch, counters):
     return session, weights, u8, cams, launches
 
 
-# kernel name fragment -> class, first match wins
-KERNEL_CLASSES = (
-    ("cost_volume_kernel", "cost volume"),
-    ("pack_source_kernel", "cost volume"),
-    ("depth_to_normal_kernel", "depth->normal"),
-    ("nchwToNhwc", "layout transposes"),
-    ("nhwcToNchw", "layout transposes"),
-    ("upsample", "upsampling"),
-    ("batch_norm", "batch norm"),
-    ("bn_fw", "batch norm"),
-    ("xmma", "convolutions"),
-    ("cutlass", "convolutions"),
-    ("conv", "convolutions"),
-    ("gemm", "convolutions"),
-)
-
-
-def profile_call(torch, call):
-    """One traced ``call()`` up to a device synchronise (torch.profiler),
-    after one untraced: its host wall ms under the profiler, the device's
-    busy ms (the sum of kernel times; one stream, so kernels do not
-    overlap), ms by kernel class, and ``(name, ms, count)`` per kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    classes = {}
-    for key, ms, _ in rows:
-        cls = next((c for frag, c in KERNEL_CLASSES if frag in key), "other")
-        classes[cls] = classes.get(cls, 0.0) + ms
-    return wall_ms, sum(r[1] for r in rows), classes, rows
-
-
 def check_batch_norm_kernels(prof_rows):
     """Every traced batch norm kernel normalised with f32 statistics: the
     native kernel's second template argument is the statistics' type."""
@@ -547,15 +502,6 @@ def check_batch_norm_kernels(prof_rows):
 
 
 # -- phase 6: the training slice -----------------------------------------------
-
-# backward kernel classes first: first match wins
-TRAIN_KERNEL_CLASSES = (
-    ("dgrad", "convolution dgrad"),
-    ("wgrad", "convolution wgrad"),
-    ("upsample_bilinear2d_backward", "upsampling backward"),
-    ("batch_norm_backward", "batch norm backward"),
-) + KERNEL_CLASSES
-
 
 def train_config(h=H, w=W, planes=P, k=K, steps=12):
     """The README's quick-start training at full width: 3 views, batch 2,
@@ -594,34 +540,6 @@ def check_normals_gradient(torch, depth, kinv, k):
     return fwd, bwd
 
 
-def profile_train_step(torch, step, state, batch):
-    """One traced train step: wall ms under the profiler, device busy ms (the
-    sum of kernel times), ms by kernel class, and the device span of the
-    plain depth->normal backward (the ``depth_to_normal_backward`` range of
-    ``DepthToNormal.backward``: first to last kernel, gaps included)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    step(state, batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    averages = prof.key_averages()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in averages
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-            and e.key != "depth_to_normal_backward"]  # a range, not a kernel
-    rows.sort(key=lambda r: -r[1])
-    classes = {}
-    for key, ms, _ in rows:
-        cls = next((c for frag, c in TRAIN_KERNEL_CLASSES if frag in key), "other")
-        classes[cls] = classes.get(cls, 0.0) + ms
-    nb = [e for e in averages if e.key == "depth_to_normal_backward"]
-    nb_ms = nb[0].device_time_total / 1e3 if nb else None
-    return wall_ms, sum(r[1] for r in rows), classes, rows, nb_ms
-
-
 def train_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, steps=12):
     """Phase 6: ``train_loop`` at full width with both launch counters, the
     loss falling on a fixed batch, the kernel's gradient, a whole step with
@@ -636,6 +554,8 @@ def train_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, st
     from cnmnet_tpu_torch.ops import normals as pn
     from cnmnet_tpu_torch.train import CheckpointManager, create_train_state, make_train_step
     from cnmnet_tpu_torch.train import train_loop
+    from cnmnet_tpu_torch.tools.profile_train import profile_step
+    from cnmnet_tpu_torch.tools.roofline import bound, kernel_cost
     from cnmnet_tpu_torch.train.loop import batch_to_device, loss_and_grads, loss_weights_from_config
 
     cfg = train_config(h, w, planes, k, steps)
@@ -745,7 +665,7 @@ def train_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, st
         return ms
 
     def trace():
-        wall, busy, classes, rows, nb_ms = profile_train_step(torch, step, fresh, batch)
+        wall, busy, classes, rows, nb_ms = profile_step(step, fresh, batch)
         if busy == 0:
             print("profile train step: the profiler recorded no device time (not measured)")
             return
@@ -785,8 +705,8 @@ def train_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, st
         "plain_fwd_bwd": device_ms(plain_fwd_bwd),
         "function_fwd_bwd": device_ms(function_fwd_bwd),
     }
-    nbytes = depth.numel() * 4 + kinv.numel() * 4 + depth.numel() * 12
-    nt["bound"], nt["by"] = bound(nbytes, depth.numel() * normals_flops(k))
+    flops, nbytes = kernel_cost("depth_to_normal", tuple(depth.shape) + (k,))
+    nt["bound"], nt["by"] = bound(nbytes, flops)
     print(f"depth_to_normal B=2 k={k} ({tf32}): kernel {nt['kernel']:.4f} ms, plain "
           f"{nt['plain']:.4f} ms, bound {nt['bound'] * 1e3:.2f} us ({nt['by']}); with the "
           f"depth gradient: Function (kernel + plain backward) {nt['function_fwd_bwd']:.4f} "
@@ -942,6 +862,7 @@ def eval_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, fra
     from cnmnet_tpu_torch.data.synthetic import SyntheticScenes
     from cnmnet_tpu_torch.evals.cal_metrics import cal_metrics
     from cnmnet_tpu_torch.evals.scannet_eval import evaluate_scannet, evaluate_scannet_planes
+    from cnmnet_tpu_torch.tools.profile_forward import profile_call
     from cnmnet_tpu_torch.evals.seven_scenes_eval import (
         evaluate_seven_scenes,
         make_eval_forward,
@@ -1106,7 +1027,7 @@ def eval_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, fra
     traced = {}
     for fb in (1, 4) if device != "cpu" else ():
         images, cams = recs[f"3-view b{fb}"].calls[0][:2]
-        wall, busy, classes, rows = profile_call(torch, lambda: fwd(images, cams))
+        wall, busy, classes, rows = profile_call(lambda: fwd(images, cams))
         if busy == 0:
             print(f"profile eval flush b{fb}: the profiler recorded no device time "
                   "(not measured)")
@@ -1387,10 +1308,11 @@ def batcher_phase(torch, counters, smi, session, weights, u8, cams, device="cuda
 
 
 class Spy:
-    """For the span of a ``with``: ``module.name`` records each result."""
+    """For the span of a ``with``: ``module.name`` records each result, and
+    is called with the keywords of ``forced`` on top of the caller's."""
 
-    def __init__(self, module, name):
-        self.module, self.name, self.results = module, name, []
+    def __init__(self, module, name, **forced):
+        self.module, self.name, self.forced, self.results = module, name, forced, []
 
     def __enter__(self):
         self.real = getattr(self.module, self.name)
@@ -1398,37 +1320,45 @@ class Spy:
         return self
 
     def __call__(self, *args, **kwargs):
-        self.results.append(self.real(*args, **kwargs))
+        self.results.append(self.real(*args, **{**kwargs, **self.forced}))
         return self.results[-1]
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.real)
 
 
-def run_cli(torch, counters, smi, argv, device="cuda"):
-    """``cli.main(argv)`` in this process with the launch counters set to 0
-    just before and read just after: (launches, seconds, printed lines)."""
+def run_tool(torch, counters, smi, name, main, argv, device="cuda", show=None):
+    """``main(argv)`` in this process with the launch counters set to 0 just
+    before and read just after; prints its rc, seconds and launches and the
+    last ``show`` lines of its output (all without ``show``), and fails on
+    a non-zero rc. Returns (launches, seconds, printed lines)."""
     import contextlib
     import io
-
-    from cnmnet_tpu_torch import cli
 
     out = io.StringIO()
     for c in counters.values():
         c.launches = 0
     t = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = cli.main(argv)
+        rc = main(argv)
     if device != "cpu":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t
     launches = {n: c.launches for n, c in counters.items()}
     lines = out.getvalue().splitlines()
-    print(f"cli {argv[0]}: rc {rc}, {seconds:.2f} s, launches {launches} [{smi}]")
-    for line in lines[-4:]:
-        print(f"  | {line[:160]}")
-    assert rc == 0, (argv, rc)
+    print(f"{name}: rc {rc}, {seconds:.2f} s, launches {launches} [{smi}]")
+    for line in lines[-show if show else 0:]:
+        print(f"  | {line[:220 if show is None else 160]}")
+    assert rc == 0, (name, argv, rc)
     return launches, seconds, lines
+
+
+def run_cli(torch, counters, smi, argv, device="cuda"):
+    """``cnmnet_tpu_torch.cli.main(argv)`` through ``run_tool``, its last four
+    lines shown."""
+    from cnmnet_tpu_torch import cli
+
+    return run_tool(torch, counters, smi, f"cli {argv[0]}", cli.main, argv, device, show=4)
 
 
 def cli_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, frames=40, steps=6):
@@ -1684,6 +1614,7 @@ def bf16_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, ste
     import copy
 
     from cnmnet_tpu_torch.data.synthetic import train_data_fn
+    from cnmnet_tpu_torch.tools.profile_train import profile_step
     from cnmnet_tpu_torch.train import make_train_step
     from cnmnet_tpu_torch.train.loop import batch_to_device
 
@@ -1734,7 +1665,7 @@ def bf16_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, ste
           f"{2e3 / ms:.2f} samples/s, steps {[round(x * 1e3, 3) for x in ts]} (TF32 matmul "
           f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN {torch.backends.cudnn.allow_tf32}) "
           f"[{smi}]")
-    wall, busy, classes, rows, _ = profile_train_step(torch, step16, s16, batch)
+    wall, busy, classes, rows, _ = profile_step(step16, s16, batch)
     idle = None if busy == 0 else 1 - busy / wall
     if busy:
         shares = ", ".join(f"{c} {v:.4f} ms" for c, v in sorted(classes.items(),
@@ -1857,6 +1788,7 @@ def tiled_phase(torch, counters, smi, device="cuda", sizes=((H, W), (480, 640)),
     from cnmnet_tpu_torch.ops import cost_volume as pcv
     from cnmnet_tpu_torch.ops import normals as pn
     from cnmnet_tpu_torch.parallel import sharding, tiled_ops
+    from cnmnet_tpu_torch.tools.roofline import CV_FLOPS, bound, normals_flops
 
     t_phase = time.perf_counter()
     total = {n: 0 for n in counters}
@@ -2563,6 +2495,22 @@ def write_raw_scene(scene, write_jpeg, frames=RAW_FRAMES, h=RAW_H, w=RAW_W, seed
     return world
 
 
+def cv2_jpeg_writer():
+    """``write(path, rgb u8 [H, W, 3], quality)`` through cv2's JPEG encoder
+    (cv2 takes BGR), or None where cv2 does not import: the raw scene's
+    JPEGs where the native loader's headers are missing."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+
+    def write(path, rgb, quality=JPEG_QUALITY):
+        bgr = np.ascontiguousarray(np.asarray(rgb, np.uint8)[..., ::-1])
+        assert cv2.imwrite(path, bgr, [cv2.IMWRITE_JPEG_QUALITY, quality]), path
+
+    return write
+
+
 def native_phase(torch, smi, scene, write_jpeg, tmp):
     """11b: the native loader on this host against the arrays the JPEGs
     were written from (JPEG's loss), ``load_rgb_normalized`` against
@@ -2771,33 +2719,43 @@ def import_phase(torch, counters, smi, tmp, size, device="cuda", h=H, w=W):
     return total, seconds
 
 
-def offline_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, steps=3):
+def offline_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, steps=3,
+                  keep=None):
     """Phase 11: the offline tools, the native loader and imported
     checkpoints at full width, under PyTorch's defaults (cuDNN TF32 on).
-    With ``g++``, ``jpeglib.h`` and ``png.h`` on the host: a raw
-    ScanNet-layout scene through ``cli prep-cameras``, ``prep-planes`` and
-    ``prep-list``, ``cli train`` on the prepared tree fed by the native
-    loader (every sample on the native path, one cost volume and three
-    depth->normals a step, finite losses) and ``cli eval-scannet --planes``
-    on its checkpoint (11a), and the native decode against the source
-    arrays (11b). Without the headers the steps that need no JPEG run:
-    ``prep-cameras`` and ``prep-planes``. Then ``cli eval --save-dir`` on a
-    mock 7-Scenes tree and ``cli report`` over it, and the imported
-    checkpoints (11c). Returns the launches per kernel, the seconds per
-    command and 11b's figures."""
+    With ``g++``, ``jpeglib.h`` and ``png.h`` on the host, or else with cv2:
+    a raw ScanNet-layout scene (its JPEGs written by libjpeg or by cv2)
+    through ``cli prep-cameras``, ``prep-planes`` and ``prep-list``, ``cli
+    train`` on the prepared tree fed by the native loader, or by
+    ``ScanNetDataset(use_native=False)``'s cv2 path (every sample on that
+    path, one cost volume and three depth->normals a step, finite losses)
+    and ``cli eval-scannet --planes`` on its checkpoint (11a); with the
+    headers, the native decode against the source arrays (11b). With
+    neither, the steps that need no JPEG run: ``prep-cameras`` and
+    ``prep-planes``. Then ``cli eval --save-dir`` on a mock 7-Scenes tree and
+    ``cli report`` over it, and the imported checkpoints (11c); ``keep``, a
+    path, receives the ``.npz`` import's checkpoint directory. Returns the
+    launches per kernel, the seconds per command and 11b's figures."""
     import glob
     import os
+    import shutil
     import tempfile
 
     from cnmnet_tpu_torch.data import native, scannet
 
     gxx, headers = native_toolchain()
     jpeg = gxx is not None and all(headers.values())
-    print(f"phase 11: g++ {gxx}; headers {headers}")
-    if not jpeg:
+    cv2_write = None if jpeg else cv2_jpeg_writer()
+    loader = "native" if jpeg else "cv2" if cv2_write is not None else None
+    print(f"phase 11: g++ {gxx}; headers {headers}; the JPEG path: {loader}")
+    if loader == "cv2":
         print("phase 11: the host lacks g++ or the libjpeg/libpng headers: the native "
-              "loader cannot be built, so the steps that read or write a JPEG are left out "
-              "(prep-list, train and eval-scannet on the prepared tree, the native decode)")
+              "loader cannot be built and its decode is left out; cv2 imports, so the raw "
+              "scene's JPEGs are written by cv2 and read by ScanNetDataset(use_native=False)")
+    elif loader is None:
+        print("phase 11: the host lacks the libjpeg/libpng headers and cv2: the steps that "
+              "read or write a JPEG are left out (prep-list, train and eval-scannet on the "
+              "prepared tree, the native decode)")
     flags = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
              "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults
@@ -2816,7 +2774,7 @@ def offline_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, 
     with tempfile.TemporaryDirectory(prefix="cnm_offline_") as tmp:
         root = f"{tmp}/scannet"
         scene = f"{root}/scene0000_00"
-        write_jpeg = None
+        write_jpeg = cv2_write
         if jpeg:
             t = time.perf_counter()
             native_ok = native.available()
@@ -2827,7 +2785,8 @@ def offline_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, 
         t = time.perf_counter()
         world = write_raw_scene(scene, write_jpeg)
         print(f"  raw scene: {RAW_FRAMES} frames at {RAW_H}x{RAW_W}, {len(world)} world planes, "
-              f"{'with' if jpeg else 'without'} JPEGs, written in {time.perf_counter() - t:.2f} s")
+              f"JPEGs by {({'native': 'libjpeg', 'cv2': 'cv2'}).get(loader, 'nothing')}, "
+              f"written in {time.perf_counter() - t:.2f} s")
 
         # 11a: the raw scene through the offline tools
         launches, seconds["prep-cameras"], lines = run_cli(
@@ -2848,7 +2807,8 @@ def offline_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, 
         assert all(n >= 2 for n in per_frame)
 
         trained = False
-        if jpeg:
+        forced = {"use_native": False} if loader == "cv2" else {}
+        if loader:
             launches, seconds["prep-list"], lines = run_cli(
                 torch, counters, smi, ["prep-list", "--root-dir", root, "--out",
                                        f"{root}/train.txt", "--frame-stride", "1"], device)
@@ -2857,7 +2817,7 @@ def offline_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, 
             assert samples >= 2 * steps, lines
             run = [f"dataset.root_dir={root}", f"dataset.list_filepath={root}/train.txt",
                    f"train.log_dir={tmp}/logs", f"train.checkpoint_dir={tmp}/ckpt"]
-            with Spy(scannet, "ScanNetDataset") as built:
+            with Spy(scannet, "ScanNetDataset", **forced) as built:
                 launches, seconds["train"], _ = run_cli(
                     torch, counters, smi, ["train", "--max-steps", str(steps), "--device",
                                            device, "dataset.batch_size=2",
@@ -2870,20 +2830,23 @@ def offline_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, 
             print(f"  train on the prepared tree ({samples} samples): the loader's path "
                   f"{paths}, losses {[round(v, 4) for v in losses]}, {seconds['train']:.2f} s "
                   f"for {steps} steps")
-            assert paths == ["native"], paths
+            assert paths == [loader], paths
             assert losses and all(np.isfinite(losses))
             trained = True
-            with Spy(scannet, "ScanNetDataset") as built:
+            with Spy(scannet, "ScanNetDataset", **forced) as built:
                 launches, seconds["eval-scannet"], lines = run_cli(
                     torch, counters, smi, ["eval-scannet", "--planes", "--max-samples", "4",
                                            "--checkpoint", "latest", "--device", device,
                                            f"dataset.test_list_filepath={root}/train.txt"]
                     + size + run, device)
             count("eval-scannet", launches, {n_: 8 for n_ in counters})
-            assert [ds.path for ds in built.results] == ["native"]
+            assert [ds.path for ds in built.results] == [loader]
             metrics = dict(line.split(": ") for line in lines if ": " in line)
             assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
-            decode = native_phase(torch, smi, scene, write_jpeg, tmp)
+            print(f"  eval-scannet on the prepared tree ({loader} path): "
+                  f"{ {n_: round(float(v), 4) for n_, v in metrics.items()} }")
+            if jpeg:
+                decode = native_phase(torch, smi, scene, write_jpeg, tmp)
 
         # cli eval --save-dir on a mock 7-Scenes tree, and cli report over it
         seven = f"{tmp}/7scenes"
@@ -2917,6 +2880,8 @@ def offline_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, 
         for n_, v in launches.items():
             total[n_] += v
         seconds.update(import_s)
+        if keep is not None:
+            shutil.move(f"{tmp}/import/from_npz", keep)
 
     torch.backends.cuda.matmul.allow_tf32 = flags["cuda.matmul.allow_tf32"]
     torch.backends.cudnn.allow_tf32 = flags["cudnn.allow_tf32"]
@@ -2925,7 +2890,121 @@ def offline_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, 
     return total, seconds, decode
 
 
+# -- phase 12: the measurement surface -----------------------------------------
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "baseline_kind"}
+# the tools that run the model: both launch counters must move in each
+MODEL_TOOLS = ("bench 192x256", "bench 480x640", "bench_batched", "bench_protocols",
+               "bench_protocols 480x640", "roofline", "bench_serving", "train_synth",
+               "two_stage_recipe")
+SERVING_FRACTIONS = (0.25, 0.5, 0.75, 0.9)
+
+
+def measure_phase(torch, counters, smi, rate, checkpoint, device="cuda", h=H, w=W, native=(480, 640),
+                  iters=16, ks="1,3", requests=200):
+    """Phase 12: ``cli bench`` and every ``cnmnet_tpu_torch.tools`` module in
+    this process at full width under PyTorch's defaults, each with the
+    launch counters around it: bench at 192x256 and 480x640; bench_batched
+    at 1, 4, 8, 16; bench_protocols (3/5/7 views at 192x256, 3 at 480x640);
+    the roofline's eight phases; profile_forward at batch 8 and
+    profile_train (bf16, batch 2); bench_serving open loop at
+    ``SERVING_FRACTIONS`` of ``rate`` (phase 8a's requests/s), ``requests``
+    each; bench_cv (1, 8, 16 pairs bf16, 4 pairs f32: the train shape) and
+    bench_normals, equal to their plain versions; check_gt_normal on 4
+    synthetic samples; visualize from ``checkpoint`` (phase 11's import);
+    train_synth for 4 steps; two_stage_recipe with 3 steps a stage. Fails
+    where a tool exits non-zero, a kernel differs from its plain version, a
+    model tool leaves a launch counter at 0 or a roofline share passes
+    100%. Returns the launches per kernel, each tool's seconds and its
+    rows."""
+    import os
+    import tempfile
+
+    from cnmnet_tpu_torch import cli
+    from cnmnet_tpu_torch.tools import (bench_batched, bench_cv, bench_normals, bench_protocols,
+                                        bench_serving, check_gt_normal, profile_forward,
+                                        profile_train, roofline, train_synth, two_stage_recipe,
+                                        visualize)
+
+    flags = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    t_phase = time.perf_counter()
+    dev = ["--device", device]
+    it = ["--iters", str(iters)]
+    short = ["--iters", str(max(2, iters // 2))]  # the tools with the longest calls
+    size = [f"--height={h}", f"--width={w}"]
+    loads = ",".join(f"{f * rate:.3f}" for f in SERVING_FRACTIONS)
+    total = {n: 0 for n in counters}
+    seconds, rows = {}, {}
+    with tempfile.TemporaryDirectory(prefix="cnm_measure_") as tmp:
+        tools = [
+            ("bench 192x256", cli.main, ["bench", f"--height={h}", f"--width={w}"] + dev),
+            ("bench 480x640", cli.main, ["bench", f"--height={native[0]}",
+                                         f"--width={native[1]}"] + dev),
+            ("bench_batched", bench_batched.main, ["--batches", "1,4,8,16"] + short + size + dev),
+            ("bench_protocols", bench_protocols.main, ["--views", "3,5,7", "--sizes",
+                                                       f"{h}x{w}"] + it + dev),
+            ("bench_protocols 480x640", bench_protocols.main,
+             ["--views", "3", "--sizes", f"{native[0]}x{native[1]}"] + it + dev),
+            ("roofline", roofline.main, ["--phases", ",".join(roofline.TITLES), "--ks", ks]
+             + short + dev),
+            ("profile_forward", profile_forward.main, ["--batch", "8", "--iters", "5",
+                                                       "--top", "15"] + size + dev),
+            ("profile_train", profile_train.main, ["--batch", "2", "--iters", "2", "--top",
+                                                   "15"] + size + dev),
+            ("bench_serving", bench_serving.main, ["--loads", loads, "--requests",
+                                                   str(requests), "--max-wait-ms", "5"]
+             + size + dev),
+            ("bench_cv", bench_cv.main, ["--batches", "1,8,16"] + it + size + dev),
+            ("bench_cv train shape", bench_cv.main, ["--batches", "4", "--dtype", "float32"]
+             + it + size + dev),
+            ("bench_normals", bench_normals.main, ["4", str(h), str(w), "9", str(iters)] + dev),
+            ("check_gt_normal", check_gt_normal.main, ["--num-samples", "4"] + size + dev),
+            ("visualize", visualize.main, ["--checkpoint", checkpoint, "--out",
+                                           f"{tmp}/viz", "--samples", "2"] + size + dev),
+            ("train_synth", train_synth.main, ["--steps", "4", "--pool", "4", "--batch", "2",
+                                               "--print-every", "2", "--eval-scenes", "2",
+                                               "--out", f"{tmp}/synth"] + size + dev),
+            ("two_stage_recipe", two_stage_recipe.main, ["--steps", "3", "--workdir",
+                                                         f"{tmp}/two_stage"] + dev),
+        ]
+        launches = {}
+        for name, main, argv in tools:
+            launches[name], seconds[name], lines = run_tool(
+                torch, counters, smi, f"tool {name}", main, argv, device)
+            rows[name] = [json.loads(line) for line in lines if line.startswith("{")]
+            for n, v in launches[name].items():
+                total[n] += v
+        pngs = sorted(os.listdir(f"{tmp}/viz"))
+    torch.backends.cuda.matmul.allow_tf32 = flags["cuda.matmul.allow_tf32"]
+    torch.backends.cudnn.allow_tf32 = flags["cudnn.allow_tf32"]
+
+    for name in ("bench 192x256", "bench 480x640"):
+        (line,) = rows[name]
+        assert set(line) == BENCH_KEYS and line["value"] > 0, line
+    if device != "cpu":
+        for name in MODEL_TOOLS:
+            assert all(v > 0 for v in launches[name].values()), (name, launches[name])
+        for row in rows["roofline"]:
+            assert row["mfu_pct"] <= 100 and row["hbm_pct"] <= 100, row
+    kernel_rows = rows["bench_cv"] + rows["bench_cv train shape"] + rows["bench_normals"]
+    assert all(r["max_abs_err"] == 0 for r in kernel_rows), kernel_rows
+    assert len(rows["roofline"]) == len(roofline.TITLES)
+    assert len(rows["bench_serving"]) == len(SERVING_FRACTIONS)
+    assert all(r["answered"] == requests for r in rows["bench_serving"]), rows["bench_serving"]
+    assert rows["two_stage_recipe"][0]["ok"] and pngs == ["sample_0.png", "sample_1.png"], pngs
+    took = time.perf_counter() - t_phase
+    print(f"phase 12: {took:.2f} s (budget 120 s); seconds per tool "
+          f"{ {n: round(v, 3) for n, v in seconds.items()} }; launches {total} [{smi}]")
+    return total, seconds, rows
+
+
 def main() -> int:
+    import os
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2939,6 +3018,8 @@ def main() -> int:
     from cnmnet_tpu_torch.kernels import normals as kn
     from cnmnet_tpu_torch.ops import cost_volume as pcv
     from cnmnet_tpu_torch.ops import normals as pn
+    from cnmnet_tpu_torch.tools.profile_forward import profile_call
+    from cnmnet_tpu_torch.tools.roofline import bound, kernel_cost
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -2994,14 +3075,16 @@ def main() -> int:
     cv_ms = device_ms(lambda: kcv.cost_volume_kernel(ref, src, coefs, idepths, torch.bfloat16))
     cv_plain_ms = device_ms(
         lambda: pcv.cost_volume_from_cameras(ref, src, rc, sc, 3.0, P).to(torch.bfloat16))
-    cv_bytes = ref.numel() * 4 * 2 + coefs.numel() * 4 + idepths.numel() * 4 + 2 * P * H * W * 2
-    cv_bound, cv_by = bound(cv_bytes, 2 * P * H * W * CV_FLOPS)
+    flops, nbytes = kernel_cost("cost_volume", (2, H, W, P), out_bytes=2)
+    cv_bound, cv_by = bound(nbytes, flops)
     cv32_ms = device_ms(lambda: kcv.cost_volume_kernel(ref, src, coefs, idepths))
-    cv32_bound, cv32_by = bound(cv_bytes + 2 * P * H * W * 2, 2 * P * H * W * CV_FLOPS)
+    flops, nbytes = kernel_cost("cost_volume", (2, H, W, P), out_bytes=4)
+    cv32_bound, cv32_by = bound(nbytes, flops)
     r16, s16, rc16, sc16 = cv_inputs(torch, 16, H, W, 0, batch8)
     c16 = kcv.pack_coefs(rc16, sc16)
     cv16_ms = device_ms(lambda: kcv.cost_volume_kernel(r16, s16, c16, idepths, torch.bfloat16))
-    cv16_bound, cv16_by = bound(8 * cv_bytes, 16 * P * H * W * CV_FLOPS)
+    flops, nbytes = kernel_cost("cost_volume", (16, H, W, P), out_bytes=2)
+    cv16_bound, cv16_by = bound(nbytes, flops)
     print(f"cost_volume bf16 writeback: 2 pairs kernel {cv_ms:.4f} ms, bound "
           f"{cv_bound * 1e3:.2f} us ({cv_by}), ratio {cv_ms / cv_bound:.2f}; 16 pairs kernel "
           f"{cv16_ms:.4f} ms, bound {cv16_bound * 1e3:.2f} us ({cv16_by}), ratio "
@@ -3012,8 +3095,8 @@ def main() -> int:
         depth, kinv = normals_inputs(torch, B, H, W, seed=40 + B)
         ms = device_ms(lambda: kn.depth_to_normal_kernel(depth, kinv, K))
         plain_ms = device_ms(lambda: pn.depth_to_normal(depth, kinv, K))
-        nb = depth.numel() * 4 + kinv.numel() * 4 + depth.numel() * 12
-        rows[B] = (ms, plain_ms) + bound(nb, depth.numel() * normals_flops(K))
+        flops, nbytes = kernel_cost("depth_to_normal", (B, H, W, K))
+        rows[B] = (ms, plain_ms) + bound(nbytes, flops)
     print(f"cost_volume f32 writeback (2 pairs): kernel {cv32_ms:.4f} ms, bound "
           f"{cv32_bound * 1e3:.2f} us ({cv32_by})")
     for B in (1, 8):
@@ -3039,7 +3122,7 @@ def main() -> int:
     # 5. where the time goes inside predict
     for B in (1, 8):
         wall, busy, classes, prof_rows = profile_call(
-            torch, lambda: session.predict(u8[:B], cams[:B]))
+            lambda: session.predict(u8[:B], cams[:B]))
         if busy == 0:
             print(f"profile bucket {B}: the profiler recorded no device time (not measured)")
             continue
@@ -3070,8 +3153,15 @@ def main() -> int:
     # mesh: two processes on the one card
     mesh = mesh_phase(torch, counters, smi)
 
-    # 11. the offline tools, the native loader and imported checkpoints
-    launches_offline, offline_s, decode = offline_phase(torch, counters, smi)
+    with tempfile.TemporaryDirectory(prefix="cnm_kept_") as kept:
+        # 11. the offline tools, the native loader and imported checkpoints
+        imported = os.path.join(kept, "from_npz")
+        launches_offline, offline_s, decode = offline_phase(torch, counters, smi, keep=imported)
+
+        # 12. the measurement surface: cli bench and the tools, at full width
+        # (open-loop serving at fractions of phase 8a's closed-loop rate)
+        launches_measure, measure_s, measure = measure_phase(
+            torch, counters, smi, load["long"]["requests_per_s"], imported)
 
     def more(name):
         """The kernel's launches on the paths after phase 3, and its total."""
@@ -3081,7 +3171,8 @@ def main() -> int:
                  "launches_remat_step": launches_remat[name],
                  "launches_tiled": launches_tiled[name], "launches_ddp_step": launches_ddp[name],
                  "launches_ddp_cli": launches_ddp_cli[name],
-                 "launches_offline": launches_offline[name]}
+                 "launches_offline": launches_offline[name],
+                 "launches_measure": launches_measure[name]}
         # phase 10: each rank's launches on each mesh path (its counters)
         on_mesh = {f"{cell} rank {r}": {p: n[name] for p, n in mesh[r][cell]["launches"].items()}
                    for cell in (f"{d}x{t}" for d, t in MESH_CELLS) for r in range(2)}
@@ -3090,13 +3181,15 @@ def main() -> int:
                 "launches_total": launches[name] + sum(paths.values()) + mesh_total,
                 "tiled": {shape: t[name] for shape, t in tiled.items()}}
 
+    (train_cv,) = measure["bench_cv train shape"]  # 4 pairs, f32: a train step's volume
     kernels = [
         {"name": "cost_volume", "route": "cuda",
          "source": "cnmnet_tpu_torch/kernels/csrc/cost_volume.cu",
          "replaces": "cnmnet_tpu/kernels/cost_volume_pallas.py:417",
          "launches": launches["cost_volume"], "max_abs_err": cv_err, "ms": cv_ms,
          "plain_ms": cv_plain_ms, "bound_ms": cv_bound, "bound_by": cv_by, "library_ms": None,
-         **more("cost_volume")},
+         **more("cost_volume"), "train_shape_ms": train_cv["ms"],
+         "train_shape_plain_ms": train_cv["plain_ms"], "train_shape_bound_ms": train_cv["bound_ms"]},
         {"name": "depth_to_normal", "route": "cuda",
          "source": "cnmnet_tpu_torch/kernels/csrc/depth_to_normal.cu",
          "replaces": "cnmnet_tpu/kernels/normals_pallas.py:168",
@@ -3122,7 +3215,13 @@ def main() -> int:
           f"{[(round(r['1x2']['peak_gib'], 3), round(r['1x2']['bf16_ms'], 3)) for r in mesh]}; "
           f"offline seconds { {n: round(v, 3) for n, v in offline_s.items()} }; native "
           f"load_frames ms/frame "
-          f"{decode['ms_per_frame'] if decode else 'not measured (no libjpeg/libpng headers)'}")
+          f"{decode['ms_per_frame'] if decode else 'not measured (no libjpeg/libpng headers)'}; "
+          f"cli bench frames/s {[r[0]['value'] for n, r in measure.items() if n.startswith('bench ')]}; "
+          f"roofline MFU% / HBM% "
+          f"{ {r['phase']: (round(r['mfu_pct'], 3), round(r['hbm_pct'], 3)) for r in measure['roofline']} }; "
+          f"open loop (offered, achieved req/s, p50, p99 ms) "
+          f"{[(round(r['offered_rps'], 2), round(r['achieved_rps'], 2), round(r['p50_ms'], 3), round(r['p99_ms'], 3)) for r in measure['bench_serving']]}; "
+          f"phase 12 seconds {sum(measure_s.values()):.2f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,16 +1,17 @@
 """Command-line entry of the port (``cnmnet_tpu/cli.py``): train, evaluate,
-re-score, infer and export.
+re-score, infer, benchmark and export.
 
     python -m cnmnet_tpu_torch.cli train --synthetic --max-steps 100 dataset.batch_size=2
     python -m cnmnet_tpu_torch.cli eval --views 3 --checkpoint latest dataset.root_dir=/data/7scenes
     python -m cnmnet_tpu_torch.cli infer --inputs 'frames/*.npz' --out-dir preds --checkpoint latest
+    python -m cnmnet_tpu_torch.cli bench [--height 192 --width 256]
 
 The subcommands, their arguments and their defaults are the JAX package's.
 Dotted overrides set config fields (``dataset.batch_size=2``), typed by the
 field's current value.
 
 The commands that run the model (``train``, ``eval``, ``eval-scannet``,
-``infer``) take one more argument, ``--device`` (default ``cuda``): the
+``infer``, ``bench``) take one more argument, ``--device`` (default ``cuda``): the
 device the model runs on, the port's way of asking for the CPU where the
 JAX CLI reads ``JAX_PLATFORMS``. Without a card, ``cuda`` raises
 (``serve.resolve_device``) instead of running on the CPU; pass ``--device
@@ -47,8 +48,10 @@ same step. A tile axis above 1 needs that many processes.
 or ``sharding.tile_partition_safe`` refuses the height, each said in a
 printed line), the frame batch rounds up to a multiple of the data axis,
 and every process prints the metrics of the whole run. On one process the
-eval runs unsharded. The ``bench`` command is not here: it waits for the
-port's benchmark.
+eval runs unsharded.
+
+``bench`` runs ``cnmnet_tpu_torch/bench.py`` (the JAX CLI runs the
+repository's ``bench.py``) and takes its ``--height`` and ``--width``.
 """
 
 from __future__ import annotations
@@ -109,6 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="also run the per-plane PlaneNet metric suite")
     es.add_argument("--max-samples", type=int, default=None)
     es.add_argument("overrides", nargs="*")
+
+    b = add("bench", help="single-card throughput benchmark")
+    b.add_argument("--height", type=int, default=192)
+    b.add_argument("--width", type=int, default=256)
 
     inf = add("infer", help="offline batched inference over .npz frames (serve.InferenceSession)")
     inf.add_argument("--config", default=None)
@@ -423,6 +430,13 @@ def cmd_eval_scannet(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from cnmnet_tpu_torch import bench
+
+    bench.main(height=args.height, width=args.width, device=args.device)
+    return 0
+
+
 def cmd_infer(args) -> int:
     """Offline batched inference: .npz frames -> ``<stem>.pred.npz`` with the
     session's output keys."""
@@ -511,6 +525,7 @@ COMMANDS = {
     "eval": cmd_eval,
     "cal-metrics": cmd_cal_metrics,
     "eval-scannet": cmd_eval_scannet,
+    "bench": cmd_bench,
     "infer": cmd_infer,
     "prep-cameras": cmd_prep_cameras,
     "prep-planes": cmd_prep_planes,

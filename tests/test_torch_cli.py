@@ -69,8 +69,12 @@ def test_parser_matches_jax_on_the_shared_subcommands(monkeypatch):
     assert set(ours) <= set(theirs)
     for name, sp in ours.items():
         got = _arguments(sp)
-        if name in ("train", "eval", "eval-scannet", "infer"):  # the commands that run the model
+        if name in ("train", "eval", "eval-scannet", "infer", "bench"):  # they run the model
             assert got.pop("device") == (("--device",), "cuda", None, None, None, False,
+                                         "_StoreAction")
+        if name == "bench":  # the options of the JAX bench.py's own parser (bench.py:99-101)
+            for dest, default in (("height", 192), ("width", 256)):
+                assert got.pop(dest) == ((f"--{dest}",), default, int, None, None, False,
                                          "_StoreAction")
         assert got == _arguments(theirs[name]), name
 
