@@ -170,8 +170,25 @@ source, in parallel), then:
    checks). Both launch counters must move in every tool that runs the
    model.
 
+13. runs the scale-out surface (``scale_phase``): ``entry()``'s flagship
+   forward (f32, 64 planes, 192x256) against the same model on the plain
+   versions; under PyTorch's defaults ``dryrun_multichip(1)`` (one full
+   train step on NCCL at world size 1; two ranks refused on one card),
+   ``scaling_sweep`` over 1x1, 2x1, 1x2 (one measured row, two skips),
+   ``probe_multichip_hlo 1 1`` (the collective census of one step),
+   ``bwd_probe`` at batch 8 over six variants (GFLOP and chain-slope
+   ms/step), ``verify_step_time 2`` (train-mode forward+loss, then hard-
+   synced steps and their losses), and ``model.k_size=19`` through the
+   k-generic depth->normal in a train step and an eval flush. Both launch
+   counters must move in every model tool (a tool's ranks report their
+   own).
+
+Phase 2 also holds depth->normal at k = 19 and 31 (the k-generic instance)
+against its plain version (max abs 0) with its time and bound, and checks
+that the first k beyond the card's shared memory is refused.
+
 Prints the build seconds, the kernel table as one JSON line (with each
-kernel's launches in phases 3, 6, 7, 8, 9, 10, 11 and 12, their total, the
+kernel's launches in phases 3, 6, 7, 8, 9, 10, 11, 12 and 13, their total, the
 tiled shards' times and the times at the train shape), the card's
 name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -181,6 +198,7 @@ Any failed check raises, and the script exits non-zero without that line.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -357,6 +375,53 @@ def normals_inputs(torch, B, h, w, seed):
     depth = torch.from_numpy(batch["depths"][:, 0]).cuda()
     kinv = invert_intrinsics(torch.from_numpy(batch["cams"][:, 0, 1, :3, :3]).cuda())
     return depth.contiguous(), kinv.contiguous()
+
+
+def check_wide_k(torch, smi, B=2, h=H, w=W, ks=(19, 31)):
+    """depth->normal above the unrolled k (the kernel's k-generic instance)
+    at B = 2, ``h`` x ``w``: each k equal to the plain version (max abs 0,
+    ``check_normals``), its CUDA-event time beside the plain version's and
+    its bound (``tools/roofline.kernel_cost``); the wrapper's shared-memory
+    count equal to the kernel's own, and the first k beyond the card's
+    opt-in shared memory refused with a message that names the limit.
+    Returns ``({k: row}, largest k)``."""
+    import ctypes
+
+    from cnmnet_tpu_torch.kernels import build
+    from cnmnet_tpu_torch.kernels import normals as kn
+    from cnmnet_tpu_torch.kernels.ablate import device_ms
+    from cnmnet_tpu_torch.ops import normals as pn
+    from cnmnet_tpu_torch.tools.roofline import bound, kernel_cost
+
+    shared = build.load("depth_to_normal").cnm_depth_to_normal_shared_bytes
+    shared.argtypes, shared.restype = [ctypes.c_int], ctypes.c_size_t
+    limit = kn.max_k()
+    for k in (1, 9, kn.UNROLLED_K, *ks, limit, limit + 2):
+        assert shared(k) == kn.shared_bytes(k), (k, shared(k), kn.shared_bytes(k))
+    depth, kinv = normals_inputs(torch, B, h, w, seed=50)
+    rows = {}
+    for k in ks:
+        err = check_normals(torch, depth, kinv, k)
+        ms = device_ms(lambda: kn.depth_to_normal_kernel(depth, kinv, k))
+        plain_ms = device_ms(lambda: pn.depth_to_normal(depth, kinv, k))
+        flops, nbytes = kernel_cost("depth_to_normal", (B, h, w, k))
+        bound_ms, by = bound(nbytes, flops)
+        rows[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": by, "shared_bytes": kn.shared_bytes(k)}
+        print(f"depth_to_normal k={k} (k-generic) B={B} {h}x{w}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({by}), ratio "
+              f"{ms / bound_ms:.2f}; {kn.shared_bytes(k)} B shared a block [{smi}]")
+    try:
+        kn.depth_to_normal_kernel(depth, kinv, limit + 2)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError(f"k = {limit + 2} launched beyond the shared-memory limit")
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert f"{optin} B" in refusal and f"up to {limit}" in refusal, refusal
+    print(f"depth_to_normal: odd k up to {limit} on this card ({optin} B opt-in shared memory "
+          f"a block); k = {limit + 2} refused: {refusal}")
+    return rows, limit
 
 
 # -- phase 3: the serving slice ----------------------------------------------
@@ -1863,14 +1928,6 @@ def tiled_phase(torch, counters, smi, device="cuda", sizes=((H, W), (480, 640)),
     return total, table
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 # One data-parallel step at world size 1 against the plain step (f32, TF32
 # off): the global BatchNorm normalises with its own formula (flax's), so
 # the two agree to rounding, not bit for bit.
@@ -1898,13 +1955,14 @@ def ddp_phase(torch, counters, smi, device="cuda", backend="nccl", h=H, w=W, pla
 
     from cnmnet_tpu_torch.data.synthetic import train_data_fn
     from cnmnet_tpu_torch.parallel.mesh import make_mesh
+    from cnmnet_tpu_torch.tools._ranks import free_port
     from cnmnet_tpu_torch.train import make_train_step
     from cnmnet_tpu_torch.train.loop import batch_to_device
 
     t_phase = time.perf_counter()
     cfg = train_config(h, w, planes, k)
     batch = batch_to_device(next(iter(train_data_fn(cfg)())), device)
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}",
                             world_size=1, rank=0)
     try:
         mesh = make_mesh()
@@ -1955,7 +2013,7 @@ def ddp_phase(torch, counters, smi, device="cuda", backend="nccl", h=H, w=W, pla
                 f"train.checkpoint_dir={ckpt}", f"train.log_dir={tmp}/logs"]
         for max_steps, extra, want_steps, want_dirs in (
                 (2, [], 2, ["2"]), (3, [f"train.resume_dir={ckpt}"], 1, ["3"])):
-            address = f"parallel.coordinator_address=127.0.0.1:{_free_port()}"
+            address = f"parallel.coordinator_address=127.0.0.1:{free_port()}"
             launches_cli, seconds, lines = run_cli(
                 torch, counters, smi, ["train", "--max-steps", str(max_steps)] + argv
                 + [address] + extra, device)
@@ -2284,9 +2342,11 @@ def mesh_phase(torch, counters, smi, device="cuda", timeout=900, **sizes):
     import os
     import tempfile
 
+    from cnmnet_tpu_torch.tools._ranks import free_port
+
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="cnm_mesh_") as out:
-        port = str(_free_port())
+        port = str(free_port())
         args = [json.dumps({"device": device, **sizes})]
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-worker",
                                    str(r), port, out] + args, stdout=subprocess.PIPE,
@@ -3001,6 +3061,192 @@ def measure_phase(torch, counters, smi, rate, checkpoint, device="cuda", h=H, w=
     return total, seconds, rows
 
 
+# -- phase 13: the scale-out surface -------------------------------------------------
+
+SCALE_VARIANTS = "base,no_normals,k5,f32,rematr,s2d"
+SCALE_TOOLS = ("dryrun_multichip 1", "scaling_sweep", "probe_multichip_hlo 1 1", "bwd_probe",
+               "verify_step_time")
+
+
+def wide_k_paths(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=19):
+    """``model.k_size`` above the unrolled k through the kernel: one f32
+    train step of ``Config()`` at ``k`` (three depth->normals with a
+    gradient, finite loss) and one eval flush of ``make_eval_forward(model,
+    k)`` (one launch), whose normals equal the plain version's on the
+    flush's own depth (max abs 0). Returns the launches of each."""
+    from cnmnet_tpu_torch.data.pipeline import quantize_images_u8
+    from cnmnet_tpu_torch.evals.seven_scenes_eval import make_eval_forward
+    from cnmnet_tpu_torch.geometry.camera import invert_intrinsics
+    from cnmnet_tpu_torch.kernels import dispatch
+    from cnmnet_tpu_torch.tools._batch import tiny_batch
+    from cnmnet_tpu_torch.train.loop import make_train_step
+    from cnmnet_tpu_torch.train.state import create_train_state
+
+    cfg = train_config(h, w, planes, k)
+    state = create_train_state(cfg, 0, device)
+    batch = tiny_batch(2, h, w, device=device)
+    _zero(counters)
+    state, metrics = make_train_step(cfg)(state, batch)
+    loss = float(metrics["loss"])
+    train = _launches(counters)
+    assert math.isfinite(loss), metrics
+    scenes = synthetic_batch(2, h, w, 3, seed=60)
+    u8, cams = quantize_images_u8(scenes["images"]), scenes["cams"].astype(np.float32)
+    forward = make_eval_forward(state.model, k, device)
+    _zero(counters)
+    idepth, _, normal = forward(u8, cams)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    flush = _launches(counters)
+    depth = 1.0 / (idepth[..., 0] + 1e-8)
+    kinv = invert_intrinsics(torch.from_numpy(cams[:, 0, 1, :3, :3]).to(depth.device))
+    plain, _ = dispatch.depth_to_normal(depth, kinv, k, backend="torch")
+    err = (normal - plain).abs().max().item()
+    print(f"model.k_size={k}: f32 train step loss {loss:.4f}, launches {train}; eval flush "
+          f"(2 frames) launches {flush}, normals against the plain version on its depth: max "
+          f"abs {err:.3e} (must be 0) [{smi}]")
+    assert torch.isfinite(normal).all() and err == 0, err
+    if device != "cpu":
+        assert train == {"cost_volume": 1, "depth_to_normal": 3}, train
+        assert flush == {"cost_volume": 1, "depth_to_normal": 1}, flush
+    return {"train_step": train, "eval_flush": flush}
+
+
+def scale_phase(torch, counters, smi, device="cuda", h=H, w=W, batch=8, ks="2,4,12", reps=10,
+                iters=5):
+    """Phase 13: the scale-out surface, each tool through its ``main`` with
+    the launch counters around it (a tool whose ranks are processes reports
+    each rank's counters): (a) ``entry()``'s flagship forward (f32, TF32
+    off) against the same model with ``cv_backend="torch"`` (phase 3's f32
+    bar: idepth and prob max |d| 1e-2, idepth relative L2 1e-4), one
+    cost-volume launch and no depth->normal (JAX's ``fn`` runs none);
+    then under PyTorch's defaults: (b) ``dryrun_multichip(1)`` on NCCL at
+    world size 1, and ``dryrun_multichip(2)`` refused on one card; (c)
+    ``scaling_sweep`` over 1x1, 2x1 and 1x2 at ``h`` x ``w``, 64 planes,
+    per-device batch 2 (one measured row, two skips); (d)
+    ``probe_multichip_hlo 1 1`` (the census at world size 1); (e)
+    ``bwd_probe`` at ``batch`` over ``SCALE_VARIANTS``; (f)
+    ``verify_step_time 2``; (g) ``model.k_size=19`` in a train step and an
+    eval flush (``wide_k_paths``). Fails where a tool exits non-zero, a loss
+    is not finite or a model tool leaves a launch counter at 0. Returns the
+    launches per tool, each tool's seconds and its rows."""
+    from cnmnet_tpu_torch import entry
+    from cnmnet_tpu_torch.tools import (bwd_probe, probe_multichip_hlo, scaling_sweep,
+                                        verify_step_time)
+
+    t_phase = time.perf_counter()
+    cuda = device != "cpu"
+    dev = ["--device", device]
+    seconds, rows, launches = {}, {}, {}
+
+    # (a) entry()'s single-card forward against its plain versions (TF32 off)
+    t = time.perf_counter()
+    fn, (images, cams) = entry.entry(device)
+    fn(images, cams)
+    _zero(counters)
+    got = fn(images, cams)
+    if cuda:
+        torch.cuda.synchronize()
+    launches["entry"] = _launches(counters)
+    fn.model.cv_backend = "torch"
+    want = fn(images, cams)
+    fn.model.cv_backend = None
+    shapes = [tuple(o.shape) for o in got]
+    d_idepth = (got[0] - want[0]).abs().max().item()
+    d_prob = (got[1] - want[1]).abs().max().item()
+    l2 = ((got[0] - want[0]).norm() / want[0].norm()).item()
+    seconds["entry"] = time.perf_counter() - t
+    print(f"entry ok: {shapes}; launches {launches['entry']}; against cv_backend='torch' (f32, "
+          f"TF32 off): idepth max|d| {d_idepth:.3e}, prob max|d| {d_prob:.3e} (tol 1e-2), "
+          f"idepth relative L2 {l2:.3e} (tol 1e-4) [{smi}]")
+    assert shapes == [(1, H, W, 1)] * 2 and all(torch.isfinite(o).all() for o in got)
+    assert max(d_idepth, d_prob) <= 1e-2 and l2 <= 1e-4, (d_idepth, d_prob, l2)
+    if cuda:
+        assert launches["entry"] == {"cost_volume": 1, "depth_to_normal": 0}, launches["entry"]
+    del fn, images, cams, got, want
+
+    flags = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        # (b) the multi-card dryrun at world size 1; two ranks need two cards
+        dryrun = {}
+
+        def dryrun_main(argv):
+            dryrun.update(entry.dryrun_multichip(int(argv[1]), device))
+            return 0
+
+        _, seconds["dryrun_multichip 1"], lines = run_tool(
+            torch, counters, smi, "tool dryrun_multichip 1", dryrun_main, ["multichip", "1"],
+            device)
+        launches["dryrun_multichip 1"] = dryrun["ranks"][0]["launches"]
+        assert lines[-1] == (f"dryrun_multichip ok: mesh={ {'data': 1, 'tile': 1} } "
+                             f"loss={dryrun['loss']:.4f}") and math.isfinite(dryrun["loss"])
+        if cuda and torch.cuda.device_count() == 1:
+            try:
+                entry.dryrun_multichip(2, device)
+            except ValueError as e:
+                print(f"dryrun_multichip 2 on one card refused: {e}")
+            else:
+                raise AssertionError("dryrun_multichip(2) ran two ranks on one card")
+
+        tools = [
+            ("scaling_sweep", scaling_sweep.main,
+             ["--meshes", "1x1,2x1,1x2", f"--height={h}", f"--width={w}", "--planes", "64",
+              "--per-device-batch", "2", "--iters", str(iters)] + dev),
+            ("probe_multichip_hlo 1 1", probe_multichip_hlo.main, ["1", "1"] + dev),
+            ("bwd_probe", bwd_probe.main, ["--batch", str(batch), f"--height={h}",
+                                           f"--width={w}", "--variants", SCALE_VARIANTS,
+                                           "--ks", ks] + dev),
+            ("verify_step_time", verify_step_time.main, ["2", f"--height={h}", f"--width={w}",
+                                                         "--reps", str(reps)] + dev),
+        ]
+        texts = {}
+        for name, main, argv in tools:
+            here, seconds[name], texts[name] = run_tool(torch, counters, smi, f"tool {name}",
+                                                        main, argv, device)
+            rows[name] = [json.loads(line) for line in texts[name] if line.startswith("{")]
+            launches[name] = here
+        # (g) k above the unrolled instances, in training and evaluation
+        t = time.perf_counter()
+        launches["model.k_size=19"] = wide_k_paths(torch, counters, smi, device, h, w)
+        seconds["model.k_size=19"] = time.perf_counter() - t
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags["cuda.matmul.allow_tf32"]
+        torch.backends.cudnn.allow_tf32 = flags["cudnn.allow_tf32"]
+
+    # the ranks of the sweep and the census count in their own processes
+    *swept, closing = rows["scaling_sweep"]
+    measured = swept[0]
+    skips = [line for line in texts["scaling_sweep"] if line.startswith("skip ")]
+    launches["scaling_sweep"] = measured["launches"][0]
+    assert measured["mesh"] == "1x1" and closing == {"sweep": swept}, rows["scaling_sweep"]
+    if cuda and torch.cuda.device_count() == 1:
+        assert len(swept) == 1, swept
+        assert skips == ["skip 2x1: only 1 devices", "skip 1x2: only 1 devices"], skips
+    (census,) = rows["probe_multichip_hlo 1 1"]
+    launches["probe_multichip_hlo 1 1"] = census["launches"]
+    assert census["by_caller"]["gradients"]["bytes"] == 4 * census["params"], census
+    assert "row_fetch" not in census["by_caller"]
+    bwd = {r["variant"]: r for r in rows["bwd_probe"]}
+    assert list(bwd) == SCALE_VARIANTS.split(","), list(bwd)
+    assert bwd["k5"]["gflop"] < bwd["base"]["gflop"] and bwd["s2d"]["gflop"] == bwd["base"]["gflop"]
+    (verify,) = rows["verify_step_time"]
+    assert len(verify["losses"]) == reps
+    losses = ([dryrun["loss"], measured["loss"], census["loss"]] + verify["losses"])
+    assert all(math.isfinite(v) for v in losses), losses
+    if cuda:
+        for name in SCALE_TOOLS:
+            assert all(v > 0 for v in launches[name].values()), (name, launches[name])
+        for name, r in bwd.items():  # the timed steps: one cost volume each
+            assert r["launches"]["cost_volume"] == r["steps_timed"], (name, r["launches"])
+    took = time.perf_counter() - t_phase
+    print(f"phase 13: {took:.2f} s (budget 90 s); seconds per tool "
+          f"{ {n: round(v, 3) for n, v in seconds.items()} }; launches {launches} [{smi}]")
+    return launches, seconds, rows
+
+
 def main() -> int:
     import os
     import tempfile
@@ -3062,6 +3308,7 @@ def main() -> int:
                 nrm_err = e
     check_normals(torch, *normals_inputs(torch, 1, 480, 640, seed=30), K)
     check_normals(torch, *normals_inputs(torch, 2, 157, 203, seed=31), K)
+    wide_k, largest_k = check_wide_k(torch, smi)
 
     # 3. the serving slice, with the launch counters
     counters = {"cost_volume": kcv.cost_volume_kernel, "depth_to_normal": kn.depth_to_normal_kernel}
@@ -3163,6 +3410,10 @@ def main() -> int:
         launches_measure, measure_s, measure = measure_phase(
             torch, counters, smi, load["long"]["requests_per_s"], imported)
 
+    # 13. the scale-out surface: the entry points, the sweep, the
+    # collective census, the backward probe, the hard-synced step; k = 19
+    launches_scale, scale_s, scale = scale_phase(torch, counters, smi)
+
     def more(name):
         """The kernel's launches on the paths after phase 3, and its total."""
         paths = {"launches_train_step": per_step[name], "launches_eval": launches_eval[name],
@@ -3173,12 +3424,16 @@ def main() -> int:
                  "launches_ddp_cli": launches_ddp_cli[name],
                  "launches_offline": launches_offline[name],
                  "launches_measure": launches_measure[name]}
+        # phase 13: in this process, or each tool's one rank (its counters)
+        scale = {tool: n[name] if name in n else {p: c[name] for p, c in n.items()}
+                 for tool, n in launches_scale.items()}
+        scale_total = sum(v if isinstance(v, int) else sum(v.values()) for v in scale.values())
         # phase 10: each rank's launches on each mesh path (its counters)
         on_mesh = {f"{cell} rank {r}": {p: n[name] for p, n in mesh[r][cell]["launches"].items()}
                    for cell in (f"{d}x{t}" for d, t in MESH_CELLS) for r in range(2)}
         mesh_total = sum(sum(v.values()) for v in on_mesh.values())
-        return {**paths, "launches_mesh": on_mesh,
-                "launches_total": launches[name] + sum(paths.values()) + mesh_total,
+        return {**paths, "launches_mesh": on_mesh, "launches_scale": scale,
+                "launches_total": launches[name] + sum(paths.values()) + mesh_total + scale_total,
                 "tiled": {shape: t[name] for shape, t in tiled.items()}}
 
     (train_cv,) = measure["bench_cv train shape"]  # 4 pairs, f32: a train step's volume
@@ -3197,7 +3452,8 @@ def main() -> int:
          "plain_ms": rows[1][1], "bound_ms": rows[1][2], "bound_by": rows[1][3],
          "library_ms": None, **more("depth_to_normal"), "train_shape_ms": nt["kernel"], "train_shape_plain_ms": nt["plain"],
          "train_shape_bound_ms": nt["bound"], "backward": "plain autograd",
-         "grad_max_abs_err": nrm_grad_err},
+         "grad_max_abs_err": nrm_grad_err, "largest_k": largest_k,
+         "k_generic": {f"k{k}_b2": row for k, row in wide_k.items()}},
     ]
     print(f"build_s {build_s:.2f}; predict ms/frame b1 {rates[1][0]:.3f} b8 {rates[8][0]:.3f}; "
           f"frames/s b1 {rates[1][1]:.2f} b8 {rates[8][1]:.2f}; train step ms: TF32 off "
@@ -3221,7 +3477,12 @@ def main() -> int:
           f"{ {r['phase']: (round(r['mfu_pct'], 3), round(r['hbm_pct'], 3)) for r in measure['roofline']} }; "
           f"open loop (offered, achieved req/s, p50, p99 ms) "
           f"{[(round(r['offered_rps'], 2), round(r['achieved_rps'], 2), round(r['p50_ms'], 3), round(r['p99_ms'], 3)) for r in measure['bench_serving']]}; "
-          f"phase 12 seconds {sum(measure_s.values()):.2f}")
+          f"phase 12 seconds {sum(measure_s.values()):.2f}; sweep 1x1 step ms "
+          f"{scale['scaling_sweep'][0]['step_ms']:.3f}; bwd_probe (GFLOP, ms/step) "
+          f"{ {r['variant']: (round(r['gflop'], 3), round(r['ms_per_step'], 3)) for r in scale['bwd_probe']} }; "
+          f"verify_step_time fwd+loss {scale['verify_step_time'][0]['fwd_loss_ms']:.3f} ms, step "
+          f"median {scale['verify_step_time'][0]['step_median_ms']:.3f} ms; phase 13 seconds "
+          f"{sum(scale_s.values()):.2f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

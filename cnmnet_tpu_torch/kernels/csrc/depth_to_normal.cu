@@ -53,7 +53,16 @@
 // FMAs, and rounds where the plain version rounds, in its order (taps
 // added first to last, vertical pass then horizontal): the kernel and the
 // plain version give the same normals, not merely equally good ones.
-// Any H and W; odd k <= 17.
+//
+// Odd k above 17 take one k-generic instantiation (depth_to_normal_any):
+// the same tiles, the same zero-filled cp.async staging and the same tap
+// order (vertical pass then horizontal, each window summed first to last
+// from 0), with k read at run time and nothing unrolled, so it too equals
+// the plain version bit for bit. Its staged tile grows with R = k/2:
+// (8 + 2R) x (64 + 2R) points and 8 x (64 + 2R) vertical sums of the 9
+// monomials (shared_bytes below); it launches while that fits the block's
+// opt-in shared memory (227 KB on an H100: up to k = 87).
+// Any H and W.
 
 #include <cuda_runtime.h>
 
@@ -300,17 +309,174 @@ int launch(const float* depth, const float* kinv, float* out, int B, int H, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// Shared memory of one block at window k: the masked points, then the raw
+// depth or, once the points are formed, the 9 x kTileH rows of vertical
+// sums (Tile<K>::Bytes for the unrolled instances).
+__host__ __device__ constexpr size_t shared_bytes(int k) {
+  const int r = k / 2;
+  const size_t sh = kTileH + 2 * r;
+  const size_t pitch = (kTileW + 2 * r + 3) / 4 * 4;
+  const size_t stage = sh * pitch;
+  const size_t vsum = 9 * kTileH * pitch;
+  return (3 * stage + (stage > vsum ? stage : vsum)) * sizeof(float);
+}
+static_assert(shared_bytes(9) == Tile<9>::Bytes && shared_bytes(17) == Tile<17>::Bytes,
+              "one layout for both forms");
+
+// Odd k > kMaxK: Tile<K>'s layout with k at run time. Each thread forms a
+// window's monomials from the staged points as it sums them (the unrolled
+// form keeps them in registers), so a product is taken k times, not once;
+// every product and sum rounds as in the plain version.
+__global__ void __launch_bounds__(kThreads) depth_to_normal_any(
+    const float* __restrict__ depth, const float* __restrict__ kinv,
+    float* __restrict__ out, int H, int W, int K, int row_offset, float vmin, float vmax,
+    float det_eps, float norm_eps) {
+  const int R = K / 2;
+  const int SH = kTileH + 2 * R;
+  const int SW = kTileW + 2 * R;
+  const int Pitch = (SW + 3) / 4 * 4;
+  const int Stage = SH * Pitch;
+  extern __shared__ __align__(16) float smem[];
+  float* px = smem;
+  float* py = px + Stage;
+  float* pz = py + Stage;
+  float* raw = pz + Stage;
+  float* vsum = raw;
+
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.y * kTileH;
+  const int col0 = blockIdx.x * kTileW;
+  const int tid = threadIdx.x;
+  const float* d_img = depth + static_cast<size_t>(b) * H * W;
+
+  for (int i = tid; i < SH * SW; i += kThreads) {
+    const int yy = i / SW;
+    const int xx = i - yy * SW;
+    const int gy = row0 - R + yy;
+    const int gx = col0 - R + xx;
+    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    copy4_async(raw + yy * Pitch + xx, inside ? d_img + static_cast<size_t>(gy) * W + gx : d_img,
+                inside);
+  }
+  wait_async_copies();
+  __syncthreads();
+
+  const float* Kb = kinv + 9 * b;
+  const float k0 = Kb[0], k1 = Kb[1], k2 = Kb[2], k3 = Kb[3], k4 = Kb[4], k5 = Kb[5];
+  const float k6 = Kb[6], k7 = Kb[7], k8 = Kb[8];
+  for (int i = tid; i < SH * SW; i += kThreads) {
+    const int yy = i / SW;
+    const int xx = i - yy * SW;
+    const int at = yy * Pitch + xx;
+    const float d = raw[at];
+    float X = 0.0f, Y = 0.0f, Z = 0.0f;
+    if (d > vmin && d < vmax) {
+      const float u = static_cast<float>(col0 - R + xx);
+      const float v = static_cast<float>(row0 - R + yy + row_offset);
+      X = mul(add(add(mul(k0, u), mul(k1, v)), k2), d);
+      Y = mul(add(add(mul(k3, u), mul(k4, v)), k5), d);
+      Z = mul(add(add(mul(k6, u), mul(k7, v)), k8), d);
+    }
+    px[at] = X;
+    py[at] = Y;
+    pz[at] = Z;
+  }
+  __syncthreads();
+
+  // vertical k-tap sums: one (staged column, output row) a thread
+  for (int i = tid; i < SW * kTileH; i += kThreads) {
+    const int xx = i % SW;
+    const int r = i / SW;
+    for (int j = 0; j < 9; ++j) {
+      float acc = 0.0f;
+      for (int t = 0; t < K; ++t) {
+        const int at = (r + t) * Pitch + xx;
+        acc = add(acc, monomial(j, px[at], py[at], pz[at]));
+      }
+      vsum[(j * kTileH + r) * Pitch + xx] = acc;
+    }
+  }
+  __syncthreads();
+
+  const int ty = tid / (kTileW / kRun);
+  const int tx = (tid % (kTileW / kRun)) * kRun;
+  const int gy = row0 + ty;
+  const int gx = col0 + tx;
+  if (gy >= H || gx >= W) return;
+  float s[kRun][9];
+  for (int j = 0; j < 9; ++j) {
+    const float* row = vsum + (j * kTileH + ty) * Pitch + tx;
+#pragma unroll
+    for (int o = 0; o < kRun; ++o) {
+      float acc = 0.0f;
+      for (int t = 0; t < K; ++t) acc = add(acc, row[o + t]);
+      s[o][j] = acc;
+    }
+  }
+  float3 n[kRun];
+#pragma unroll
+  for (int o = 0; o < kRun; ++o) n[o] = solve(s[o], det_eps, norm_eps);
+  float* o_row = out + ((static_cast<size_t>(b) * H + gy) * W + gx) * 3;
+  if (W % 2 == 0 && gx + kRun <= W) {
+    float2* o2 = reinterpret_cast<float2*>(o_row);
+    o2[0] = make_float2(n[0].x, n[0].y);
+    o2[1] = make_float2(n[0].z, n[1].x);
+    o2[2] = make_float2(n[1].y, n[1].z);
+  } else {
+#pragma unroll
+    for (int o = 0; o < kRun; ++o) {
+      if (gx + o < W) {
+        o_row[3 * o] = n[o].x;
+        o_row[3 * o + 1] = n[o].y;
+        o_row[3 * o + 2] = n[o].z;
+      }
+    }
+  }
+}
+
+int launch_any(const float* depth, const float* kinv, float* out, int B, int H, int W, int k,
+               int row_offset, float vmin, float vmax, float det_eps, float norm_eps,
+               cudaStream_t stream) {
+  static size_t allowed[kMaxDevices];  // the opt-in size set so far, per device
+  int dev = 0;
+  int status = static_cast<int>(cudaGetDevice(&dev));
+  if (status != 0) return status;
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  int optin = 0;
+  status = static_cast<int>(
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  if (status != 0) return status;
+  const size_t bytes = shared_bytes(k);
+  if (bytes > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > allowed[dev]) {
+    status = static_cast<int>(cudaFuncSetAttribute(
+        depth_to_normal_any, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes)));
+    if (status != 0) return status;
+    allowed[dev] = bytes;
+  }
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  depth_to_normal_any<<<grid, kThreads, bytes, stream>>>(depth, kinv, out, H, W, k, row_offset,
+                                                         vmin, vmax, det_eps, norm_eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // depth: [B, H, W] f32, rows from global row row_offset on; kinv: [B, 3, 3]
-// f32; out: [B, H, W, 3] f32, all contiguous. Returns cudaGetLastError()
-// after the launch.
+// f32; out: [B, H, W, 3] f32, all contiguous; k odd, unrolled up to kMaxK,
+// k-generic above while its tile fits the block's shared memory
+// (cnm_depth_to_normal_shared_bytes). Returns cudaGetLastError() after the
+// launch.
 extern "C" int cnm_depth_to_normal(const float* depth, const float* kinv, float* out,
                                    int B, int H, int W, int k, int row_offset, float vmin,
                                    float vmax, float det_eps, float norm_eps,
                                    cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || k < 1 || k % 2 == 0 || k > kMaxK)
+  if (B <= 0 || H <= 0 || W <= 0 || k < 1 || k % 2 == 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (k > kMaxK)
+    return launch_any(depth, kinv, out, B, H, W, k, row_offset, vmin, vmax, det_eps, norm_eps,
+                      stream);
   switch (k) {
 #define CNM_CASE(KK) \
   case KK:           \
@@ -321,4 +487,10 @@ extern "C" int cnm_depth_to_normal(const float* depth, const float* kinv, float*
 #undef CNM_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of one block at window k (0 for an even or
+// non-positive k): what the wrapper holds against the device's opt-in limit.
+extern "C" size_t cnm_depth_to_normal_shared_bytes(int k) {
+  return k < 1 || k % 2 == 0 ? 0 : shared_bytes(k);
 }

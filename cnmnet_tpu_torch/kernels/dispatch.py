@@ -78,3 +78,10 @@ def depth_to_normal(depth, intrinsics_inv, k_size=9, backend=None, row_offset=0)
     if _resolve(backend, depth) == "cuda":
         return _normal_kernel.depth_to_normal(depth, intrinsics_inv, k_size, row_offset)
     return _normal_ops.depth_to_normal(depth, intrinsics_inv, k_size, row_offset=row_offset)
+
+
+def launch_counts() -> dict:
+    """Each kernel's launch counter in this process (``*_kernel.launches``):
+    what a rank process reports back to the process that started it."""
+    return {"cost_volume": _cv_kernel.cost_volume_kernel.launches,
+            "depth_to_normal": _normal_kernel.depth_to_normal_kernel.launches}

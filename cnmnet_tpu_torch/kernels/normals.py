@@ -12,6 +12,11 @@ backward is autograd through the plain version, recomputed from the saved
 inputs: the JAX kernel's ``custom_vjp`` (``_fwd``/``_bwd``) does the same,
 and neither package has a backward kernel.
 
+Every odd k launches: up to ``UNROLLED_K`` an instance unrolled for its
+k, above it one k-generic instance, while its staged tile
+(``shared_bytes``) fits the block's opt-in shared memory (227 KB on an
+H100: ``max_k``, k = 87). A larger k raises; the CPU path takes any odd k.
+
 ``depth_to_normal_kernel.launches`` counts the kernel's launches.
 """
 
@@ -25,8 +30,36 @@ from cnmnet_tpu_torch.geometry.warp import pixel2cam
 from cnmnet_tpu_torch.kernels import build
 from cnmnet_tpu_torch.ops import normals as plain
 
-MAX_K = 17
+UNROLLED_K = 17  # csrc/depth_to_normal.cu:kMaxK
+TILE_W, TILE_H = 64, 8  # the kernel's output tile
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+
+
+def shared_bytes(k_size: int) -> int:
+    """Dynamic shared memory of one block at an odd window ``k_size``
+    (``csrc/depth_to_normal.cu:shared_bytes``): the staged points X, Y, Z
+    of the tile and its halo, then the raw depth or the 9 x ``TILE_H`` rows
+    of vertical sums, whichever is larger; rows padded to 16 bytes."""
+    r = k_size // 2
+    pitch = (TILE_W + 2 * r + 3) // 4 * 4
+    stage = (TILE_H + 2 * r) * pitch
+    return (3 * stage + max(stage, 9 * TILE_H * pitch)) * 4
+
+
+def max_k(device=None) -> int:
+    """The largest odd k whose tile fits a block's opt-in shared memory on
+    ``device`` (the current CUDA device when None)."""
+    props = torch.cuda.get_device_properties(device if device is not None
+                                             else torch.cuda.current_device())
+    return largest_k(props.shared_memory_per_block_optin)
+
+
+def largest_k(limit_bytes: int) -> int:
+    """The largest odd k with ``shared_bytes(k) <= limit_bytes``."""
+    k = 1
+    while shared_bytes(k + 2) <= limit_bytes:
+        k += 2
+    return k
 
 
 def depth_to_normal_kernel(
@@ -50,8 +83,14 @@ def depth_to_normal_kernel(
     if (tuple(intrinsics_inv.shape) != (B, 3, 3) or intrinsics_inv.dtype != torch.float32
             or intrinsics_inv.device != depth.device or not intrinsics_inv.is_contiguous()):
         raise ValueError(f"intrinsics_inv: want contiguous f32 ({B}, 3, 3) on {depth.device}")
-    if k_size % 2 != 1 or not 1 <= k_size <= MAX_K:
-        raise ValueError(f"k_size must be odd and at most {MAX_K}, got {k_size}")
+    if k_size % 2 != 1 or k_size < 1:
+        raise ValueError(f"k_size must be odd and positive, got {k_size}")
+    if k_size > UNROLLED_K and k_size > max_k(depth.device):
+        props = torch.cuda.get_device_properties(depth.device)
+        raise ValueError(
+            f"k_size {k_size}: its tile needs {shared_bytes(k_size)} B of shared memory, beyond "
+            f"the {props.shared_memory_per_block_optin} B a block may take on {props.name}; "
+            f"the kernel takes odd k up to {max_k(depth.device)} there, the CPU path any odd k")
     lib = build.load("depth_to_normal")
     fn = lib.cnm_depth_to_normal
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int

@@ -224,6 +224,20 @@ class RowPlan:
                 f"{[b - a for a, b in self.ranges[level]]}); use a larger height or fewer tiles")
 
 
+def least_height(tile: int) -> int:
+    """The least image height whose ``RowPlan`` splits over ``tile``
+    indices (32 at tile 1, 64 at tile 2): where the JAX package's
+    partitioner shards any height, the port's row plan needs ``tile`` rows
+    at every level."""
+    height = 32
+    while True:
+        try:
+            RowPlan(height, tile)
+            return height
+        except ValueError:
+            height += 32
+
+
 def local_batch_size(global_batch: int, mesh: Optional[Mesh] = None) -> int:
     """This process's share of ``global_batch`` (``global_batch`` over the
     process count, which must divide it), as in JAX."""

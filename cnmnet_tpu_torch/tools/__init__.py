@@ -14,6 +14,19 @@ Timing (on the card):
 * ``bench_serving``: a Poisson open-loop client through ``MicroBatcher``;
 * ``bench_cv``, ``bench_normals``: each kernel against its plain version.
 
+Scale-out (each a ``data x tile`` mesh of rank processes, ``_ranks.run``:
+NCCL with one rank a card on CUDA, gloo on the CPU; with
+``cnmnet_tpu_torch/entry.py``'s ``dryrun_multichip``):
+
+* ``scaling_sweep``: step time, samples/s and scaling efficiency over mesh
+  shapes;
+* ``probe_multichip_hlo``: the collectives one sharded step makes, by
+  kind, caller and bytes;
+* ``bwd_probe``: chain-slope ms/step and GFLOP of 14 train-step variants
+  (one process);
+* ``verify_step_time``: the train-mode forward alone, then hard-synced
+  steps and their losses (one process).
+
 Recipes: ``check_gt_normal``, ``visualize``, ``train_synth``,
 ``two_stage_recipe``. ``_batch.tiny_batch`` gives every tool its seeded
 synthetic inputs. The benchmark itself is ``cnmnet_tpu_torch/bench.py``

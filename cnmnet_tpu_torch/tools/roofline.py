@@ -257,7 +257,9 @@ def train_config(batch_size, height, width, extra=()):
         *extra])
 
 
-def phase_train(device, batch_size, height=192, width=256, extra=(), ks=(4, 16, 48)):
+def train_setup(device, batch_size, height, width, extra=()):
+    """``train_config``'s step, a seeded state and one seeded batch on
+    ``device``, after the step's first call: ``(cfg, step, state, batch)``."""
     from cnmnet_tpu_torch.tools._batch import tiny_batch
     from cnmnet_tpu_torch.train.loop import make_train_step
     from cnmnet_tpu_torch.train.state import create_train_state
@@ -268,6 +270,11 @@ def phase_train(device, batch_size, height=192, width=256, extra=(), ks=(4, 16, 
     step = make_train_step(cfg)
     state, metrics = step(state, batch)  # first-call costs
     float(metrics["loss"])
+    return cfg, step, state, batch
+
+
+def phase_train(device, batch_size, height=192, width=256, extra=(), ks=(4, 16, 48)):
+    _, step, state, batch = train_setup(device, batch_size, height, width, extra)
     with no_remat(state.model):
         c = count(lambda: float(step(state, batch)[1]["loss"]))
     c["secs"] = _train_slope(step, state, batch, ks)

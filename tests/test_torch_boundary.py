@@ -176,3 +176,20 @@ def test_the_walk_covers_the_tools():
         assert f"cnmnet_tpu_torch/{rel}" in walked, rel
         names = {n for n, _, _ in _imports(ROOT / "cnmnet_tpu_torch" / rel)}
         assert not names & (IMAGE_LIBS | FORBIDDEN), rel
+
+
+SCALE_OUT = ("entry.py", "tools/_ranks.py", "tools/scaling_sweep.py",
+             "tools/probe_multichip_hlo.py", "tools/bwd_probe.py", "tools/verify_step_time.py")
+
+
+def test_the_walk_covers_the_scale_out_surface():
+    """The entry points (``entry.py``) and the scale-out tools are in the walk and
+    import neither JAX, nor the JAX package, nor cv2 or PIL, even inside a
+    function: ``tools/bwd_probe.py``'s ``VARIANTS`` are compared with JAX's
+    by reading that file as text (``tests/test_torch_scale_tools.py``)."""
+    walked = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for rel in SCALE_OUT:
+        assert f"cnmnet_tpu_torch/{rel}" in walked, rel
+        names = {n for n, _, _ in _imports(ROOT / "cnmnet_tpu_torch" / rel)}
+        assert not names & (IMAGE_LIBS | FORBIDDEN), rel
+        assert "cnmnet_tpu_torch" in names or rel == "tools/_ranks.py", rel

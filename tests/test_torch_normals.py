@@ -83,7 +83,7 @@ def _inputs(rng, B=2, H=16, W=64, focal=10.0):
     return depth, K_inv
 
 
-@pytest.mark.parametrize("k_size", [5, 9])
+@pytest.mark.parametrize("k_size", [5, 9, 19])
 def test_no_worse_than_jax_against_f64_oracle(rng, k_size):
     depth, K_inv = _inputs(rng)
     truth, det = oracle_f64(depth, K_inv, k_size)
@@ -182,15 +182,28 @@ def _kernel_order_normals(depth, K_inv, k_size, vmin=0.0, vmax=10.0):
     return n / (torch.sqrt(nx * nx + ny * ny + nz * nz + 1e-20)[..., None] + 1e-5)
 
 
-@pytest.mark.parametrize("k_size", [1, 5, 9, 17])
+@pytest.mark.parametrize("k_size", [1, 5, 9, 17, 19, 31])
 def test_kernel_staging_order_equals_plain(rng, k_size):
     """Zero-filled staging and sums from 0 give the plain version's normals
     exactly (up to the sign of zero), at and inside every image edge, with
-    invalid depths (0 and beyond valid_max) inside the image."""
+    invalid depths (0 and beyond valid_max) inside the image. k = 19 and 31
+    take the kernel's k-generic instance, which keeps this order; 31 spans
+    more than the image's 13 rows."""
     depth, K_inv = _inputs(rng, B=2, H=13, W=29, focal=0.9 * 29)
     d, k = torch.from_numpy(depth), torch.from_numpy(K_inv)
     want, _ = tn.depth_to_normal(d, k, k_size)
     np.testing.assert_array_equal(_kernel_order_normals(d, k, k_size).numpy(), want.numpy())
+
+
+def test_kernel_shared_memory_and_largest_k():
+    """The wrapper's count of a block's shared memory is the kernel
+    header's (34,560 B at k = 9; the unrolled instances stay under the 48 KB
+    a launch takes without opting in), and the largest k for an H100's
+    227 KB opt-in is 87."""
+    assert kn.shared_bytes(9) == 34_560
+    assert kn.shared_bytes(kn.UNROLLED_K) <= 48 * 1024 < kn.shared_bytes(kn.UNROLLED_K + 2)
+    assert kn.largest_k(232_448) == 87
+    assert kn.shared_bytes(87) <= 232_448 < kn.shared_bytes(89)
 
 
 # -- gradients -----------------------------------------------------------------
