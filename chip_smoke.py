@@ -14,7 +14,13 @@ source, in parallel), then:
    480x640x64, and under coefficients that
    put taps at and beyond every edge of the source and past the coordinate
    clip; depth->normal at B in {1, 4, 8} x k in {5, 9} at 192x256, at 480x640
-   and at an odd size, also judged against the plain version in f64;
+   and at an odd size, also judged against the plain version in f64; the
+   k-generic depth->normal at k = 19, 31, 89 and 129 (B = 2, 192x256) with
+   its times and bounds; the cost volume past 2^31 elements (110 pairs at
+   480x640, 64 planes, bf16: two launches, the pairs at every chunk edge
+   against the plain version, its time and bound) and, with the limit
+   lowered, in chunks of pairs, of one pair's planes and of a row shard;
+   depth->normal with the batch limit lowered (8 maps in 3 launches);
 3. serves the 3-view refined forward at full width (CNMModel, 64 planes,
    192x256, bf16, seeded weights whose BatchNorm statistics are taken from
    synthetic frames) through ``InferenceSession.predict`` on
@@ -183,9 +189,9 @@ source, in parallel), then:
    counters must move in every model tool (a tool's ranks report their
    own).
 
-Phase 2 also holds depth->normal at k = 19 and 31 (the k-generic instance)
-against its plain version (max abs 0) with its time and bound, and checks
-that the first k beyond the card's shared memory is refused.
+After phase 7, ``wide_flush_phase`` runs the eval forward on a 7-view
+flush of 19 frames at 480x640 (114 pairs: two cost-volume launches) and
+holds its metrics against frame batch 1.
 
 Prints the build seconds, the kernel table as one JSON line (with each
 kernel's launches in phases 3, 6, 7, 8, 9, 10, 11, 12 and 13, their total, the
@@ -238,16 +244,23 @@ def cv_inputs(torch, B, h, w, seed, batch=None):
         rng = np.random.default_rng(seed)
         ref = rng.standard_normal((B, h, w, 3)).astype(np.float32)
         src = rng.standard_normal((B, h, w, 3)).astype(np.float32)
-        rc = np.zeros((B, 2, 4, 4), np.float32)
-        rc[:, 0] = np.eye(4)
-        rc[:, 1, :3, :3] = [[0.9 * w, 0, w / 2], [0, 0.9 * w, h / 2], [0, 0, 1]]
-        sc = rc.copy()
-        for b in range(B):
-            a = 0.03 * rng.standard_normal()
-            sc[b, 0, :2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
-            sc[b, 0, :3, 3] = 0.08 * rng.standard_normal(3)
+        rc, sc = noise_cameras(rng, B, h, w)
     dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()  # noqa: E731
     return dev(ref), dev(src), camera_from_array(dev(rc)), camera_from_array(dev(sc))
+
+
+def noise_cameras(rng, B, h, w):
+    """``B`` (reference, source) camera arrays ``[B, 2, 4, 4]``: the
+    reference at the origin, each source turned and moved a little."""
+    rc = np.zeros((B, 2, 4, 4), np.float32)
+    rc[:, 0] = np.eye(4)
+    rc[:, 1, :3, :3] = [[0.9 * w, 0, w / 2], [0, 0.9 * w, h / 2], [0, 0, 1]]
+    sc = rc.copy()
+    for b in range(B):
+        a = 0.03 * rng.standard_normal()
+        sc[b, 0, :2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        sc[b, 0, :3, 3] = 0.08 * rng.standard_normal(3)
+    return rc, sc
 
 
 def check_cost_volume(torch, h, w, planes, B, seed, batch=None):
@@ -377,14 +390,12 @@ def normals_inputs(torch, B, h, w, seed):
     return depth.contiguous(), kinv.contiguous()
 
 
-def check_wide_k(torch, smi, B=2, h=H, w=W, ks=(19, 31)):
+def check_wide_k(torch, smi, B=2, h=H, w=W, ks=(19, 31, 89, 129)):
     """depth->normal above the unrolled k (the kernel's k-generic instance)
     at B = 2, ``h`` x ``w``: each k equal to the plain version (max abs 0,
     ``check_normals``), its CUDA-event time beside the plain version's and
     its bound (``tools/roofline.kernel_cost``); the wrapper's shared-memory
-    count equal to the kernel's own, and the first k beyond the card's
-    opt-in shared memory refused with a message that names the limit.
-    Returns ``({k: row}, largest k)``."""
+    count equal to the kernel's own up to k = 1025. Returns ``{k: row}``."""
     import ctypes
 
     from cnmnet_tpu_torch.kernels import build
@@ -395,9 +406,10 @@ def check_wide_k(torch, smi, B=2, h=H, w=W, ks=(19, 31)):
 
     shared = build.load("depth_to_normal").cnm_depth_to_normal_shared_bytes
     shared.argtypes, shared.restype = [ctypes.c_int], ctypes.c_size_t
-    limit = kn.max_k()
-    for k in (1, 9, kn.UNROLLED_K, *ks, limit, limit + 2):
+    for k in range(1, 1026, 2):
         assert shared(k) == kn.shared_bytes(k), (k, shared(k), kn.shared_bytes(k))
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert kn.shared_bytes(1025) <= optin, (kn.shared_bytes(1025), optin)
     depth, kinv = normals_inputs(torch, B, h, w, seed=50)
     rows = {}
     for k in ks:
@@ -411,17 +423,136 @@ def check_wide_k(torch, smi, B=2, h=H, w=W, ks=(19, 31)):
         print(f"depth_to_normal k={k} (k-generic) B={B} {h}x{w}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({by}), ratio "
               f"{ms / bound_ms:.2f}; {kn.shared_bytes(k)} B shared a block [{smi}]")
-    try:
-        kn.depth_to_normal_kernel(depth, kinv, limit + 2)
-    except ValueError as e:
-        refusal = str(e)
-    else:
-        raise AssertionError(f"k = {limit + 2} launched beyond the shared-memory limit")
-    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    assert f"{optin} B" in refusal and f"up to {limit}" in refusal, refusal
-    print(f"depth_to_normal: odd k up to {limit} on this card ({optin} B opt-in shared memory "
-          f"a block); k = {limit + 2} refused: {refusal}")
-    return rows, limit
+    print(f"depth_to_normal: the k-generic instance takes {kn.shared_bytes(kn.UNROLLED_K + 2)} B "
+          f"of shared memory at every k (kernel and wrapper agree up to k = 1025; {optin} B "
+          f"opt-in a block on this card)")
+    return rows
+
+
+def noise_pairs(torch, B, h, w, seed):
+    """``B`` (ref, src) pairs of white noise made on the card under
+    ``noise_cameras``, for volumes too large to make on the host."""
+    from cnmnet_tpu_torch.geometry.camera import camera_from_array
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ref = torch.randn((B, h, w, 3), generator=g, device="cuda")
+    src = torch.randn((B, h, w, 3), generator=g, device="cuda")
+    rc, sc = (torch.from_numpy(c).cuda() for c in noise_cameras(np.random.default_rng(seed), B, h, w))
+    return ref, src, camera_from_array(rc), camera_from_array(sc)
+
+
+def check_chunked_pairs(torch, vol, ref, src, rc, sc, pairs, out_dtype, what, row_offset=0):
+    """The named pairs of a chunked volume ``[B, H, W, P]`` against the
+    plain version on those pairs alone (max abs 0, in ``out_dtype``)."""
+    from cnmnet_tpu_torch.ops import cost_volume as pcv
+
+    err = 0.0
+    for b in pairs:
+        one = lambda c: c._replace(extrinsic=c.extrinsic[b:b + 1],  # noqa: E731
+                                   intrinsic=c.intrinsic[b:b + 1])
+        plain = pcv.cost_volume_from_cameras(ref[b:b + 1], src[b:b + 1], one(rc), one(sc), 3.0,
+                                             vol.shape[3], row_offset).to(out_dtype)
+        err = max(err, (vol[b:b + 1].float() - plain.float()).abs().max().item())
+    print(f"check cost_volume {what}: pairs {sorted(pairs)} against the plain version, max abs "
+          f"{err:.3e} (must be 0)")
+    assert err == 0, (what, err)
+    return err
+
+
+def check_cost_volume_chunks(torch, smi, pairs=110, h=480, w=640, planes=P):
+    """The cost volume past 2^31 elements: ``pairs`` pairs at ``h`` x ``w``
+    x ``planes`` in bf16 (110 x 480 x 640 x 64 = 2.16e9 costs) in at least
+    two launches, the first and last pair and the pairs on each side of
+    every chunk boundary equal to the plain version, with its time and
+    bound; then at 192x256 with ``INDEX_LIMIT`` lowered: 6 pairs in chunks
+    of 2, then each pair in chunks of its planes, and a row shard against
+    the whole source, each whole volume equal to the plain version in f32
+    and bf16. Returns the 110-pair row."""
+    from unittest import mock
+
+    from cnmnet_tpu_torch.kernels import cost_volume as kcv
+    from cnmnet_tpu_torch.kernels.ablate import device_ms
+    from cnmnet_tpu_torch.ops import cost_volume as pcv
+    from cnmnet_tpu_torch.tools.roofline import bound, kernel_cost
+
+    counter = kcv.cost_volume_kernel
+    ref, src, rc, sc = noise_pairs(torch, pairs, h, w, seed=8)
+    chunks = kcv.launch_chunks(pairs, h, w, planes)
+    before = counter.launches
+    vol = kcv.cost_volume(ref, src, rc, sc, 3.0, planes, torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = counter.launches - before
+    assert launches == len(chunks) >= 2 and tuple(vol.shape) == (pairs, h, w, planes), launches
+    edges = {0, pairs - 1} | {b for b0, b1, _, _ in chunks for b in (b0, b1 - 1)}
+    err = check_chunked_pairs(torch, vol, ref, src, rc, sc, edges, torch.bfloat16,
+                              f"B={pairs} {h}x{w}x{planes} bf16 in {launches} launches {chunks}")
+    del vol
+    coefs = kcv.pack_coefs(rc, sc)
+    idepths = pcv.idepth_hypotheses(3.0, planes, ref.device)
+    ms = device_ms(lambda: kcv.cost_volume_kernel(ref, src, coefs, idepths, torch.bfloat16),
+                   runs=5, reps=2)
+    flops, nbytes = kernel_cost("cost_volume", (pairs, h, w, planes), out_bytes=2)
+    bound_ms, by = bound(nbytes, flops)
+    print(f"cost_volume {pairs} pairs {h}x{w}x{planes} bf16 ({pairs * planes * h * w} costs, "
+          f"{launches} launches): kernel {ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({by}), "
+          f"ratio {ms / bound_ms:.2f} [{smi}]")
+    del ref, src, coefs
+    torch.cuda.empty_cache()
+
+    # lowered limit at 192x256: a pair is 3,145,728 costs, its packed source
+    # 203,840 floats; a shard of 48 rows 786,432 costs
+    ref, src, rc, sc = cv_inputs(torch, 6, H, W, seed=9)
+    shard_ref = ref[:, 48:96].contiguous()
+    lowered = {}
+    for limit, want in ((7_000_000, 3), (2_000_000, 12)):  # 2 pairs a launch; then 32 planes
+        with mock.patch.object(kcv, "INDEX_LIMIT", limit):
+            for dtype in (torch.float32, torch.bfloat16):
+                before = counter.launches
+                vol = kcv.cost_volume(ref, src, rc, sc, 3.0, P, dtype)
+                torch.cuda.synchronize()
+                assert counter.launches - before == want, (limit, counter.launches - before)
+                check_chunked_pairs(torch, vol, ref, src, rc, sc, range(6), dtype,
+                                    f"B=6 {H}x{W}x{P} {dtype} under a limit of {limit}: "
+                                    f"{want} launches")
+        # the shard of rows 48..95 against the whole source, under a quarter
+        # of the limit: the same chunks, of pairs and then of planes
+        with mock.patch.object(kcv, "INDEX_LIMIT", limit // 4):
+            before = counter.launches
+            rows = kcv.cost_volume(shard_ref, src, rc, sc, 3.0, P, torch.float32, row_offset=48)
+            torch.cuda.synchronize()
+            assert counter.launches - before == want, (limit // 4, counter.launches - before)
+            check_chunked_pairs(torch, rows, shard_ref, src, rc, sc, range(6), torch.float32,
+                                f"row shard 48..95 of B=6 {H}x{W}x{P} under a limit of "
+                                f"{limit // 4}: {want} launches", row_offset=48)
+        lowered[limit] = want
+    return {"pairs": pairs, "shape": [h, w, planes], "out": "bf16", "launches": launches,
+            "max_abs_err": err, "ms": ms, "bound_ms": bound_ms, "bound_by": by,
+            "lowered_limit_launches": lowered}
+
+
+def check_normals_batch_chunks(torch, B=8, limit=3, ks=(9, 19)):
+    """depth->normal with the batch limit lowered to ``limit``: ``B`` maps
+    in ``ceil(B / limit)`` launches, equal to the plain version (max abs
+    0) at an unrolled and the k-generic instance."""
+    from unittest import mock
+
+    from cnmnet_tpu_torch.kernels import normals as kn
+    from cnmnet_tpu_torch.ops import normals as pn
+
+    depth, kinv = normals_inputs(torch, B, H, W, seed=51)
+    want_launches = -(-B // limit)
+    for k in ks:
+        with mock.patch.object(kn, "MAX_BATCH", limit):
+            before = kn.depth_to_normal_kernel.launches
+            got = kn.depth_to_normal_kernel(depth, kinv, k)
+            torch.cuda.synchronize()
+            launches = kn.depth_to_normal_kernel.launches - before
+        want, _ = pn.depth_to_normal(depth, kinv, k)
+        err = (got - want).abs().max().item()
+        print(f"check depth_to_normal B={B} k={k} under a batch limit of {limit}: {launches} "
+              f"launches, max|kernel-plain| {err:.3e} (must be 0)")
+        assert launches == want_launches and err == 0, (k, launches, err)
+    return want_launches
 
 
 # -- phase 3: the serving slice ----------------------------------------------
@@ -1114,6 +1245,101 @@ def eval_phase(torch, counters, smi, device="cuda", h=H, w=W, planes=P, k=K, fra
     torch.backends.cudnn.allow_tf32 = flags["cudnn.allow_tf32"]
     torch.backends.cudnn.benchmark = flags["cudnn.benchmark"]
     return launches_eval, {"steady": steady, "traced": traced}
+
+
+def flush_inputs(frames, views, h, w, seed):
+    """``frames`` eval frames of ``views`` views at ``h`` x ``w``: uint8
+    noise texture, each frame's sources moved by ``noise_cameras``, and a
+    constant GT depth a frame (``frame_depth_m``)."""
+    rng = np.random.default_rng(seed)
+    u8 = rng.integers(0, 256, (frames, views, h, w, 3), dtype=np.uint8)
+    cams = np.empty((frames, views, 2, 4, 4), np.float32)
+    for f in range(frames):
+        rc, sc = noise_cameras(rng, views - 1, h, w)
+        cams[f, 0], cams[f, 1:] = rc[0], sc
+    gt = np.stack([np.full((h, w), frame_depth_m(f), np.float32) for f in range(frames)])
+    return u8, cams, gt
+
+
+def wide_flush_phase(torch, counters, smi, device="cuda", h=480, w=640, planes=P, k=K,
+                     frames=19, views=7):
+    """The flush the JAX package takes and the port refused before its
+    cost volume launched in chunks: ``make_eval_forward`` (f32, PyTorch's
+    defaults) on a 7-view flush of 19 frames at 480x640, 114 pairs of 64
+    planes (2.24e9 costs): two cost-volume launches and one depth->normal,
+    with the launch counters set to 0 just before and read just after;
+    finite outputs, its normals equal to the plain version on its own
+    depth, and its metrics against frame batch 1 (phase 7's tolerance: 1e-4
+    relative, a1-a3 3e-5 absolute). Returns the flush's launches."""
+    from cnmnet_tpu_torch.config import Config
+    from cnmnet_tpu_torch.evals.cal_metrics import frame_metrics
+    from cnmnet_tpu_torch.evals.seven_scenes_eval import aggregate_metrics, make_eval_forward
+    from cnmnet_tpu_torch.geometry.camera import invert_intrinsics
+    from cnmnet_tpu_torch.kernels import cost_volume as kcv
+    from cnmnet_tpu_torch.kernels import dispatch
+    from cnmnet_tpu_torch.models.layers import init_weights
+    from cnmnet_tpu_torch.train.state import build_model
+
+    t_phase = time.perf_counter()
+    cuda = device != "cpu"
+    flags = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        u8, cams, gt = flush_inputs(frames, views, h, w, seed=70)
+        cfg = Config()
+        cfg.model.num_planes = planes
+        model = build_model(cfg)
+        init_weights(model, torch.Generator().manual_seed(0))
+        model.to(device)
+        calibrate_batch_norm(torch, model, torch.from_numpy(u8[:2, :3]).to(device),
+                             torch.from_numpy(cams[:2, :3]).to(device))
+        fwd = make_eval_forward(model, k_size=k, device=device)
+        pairs = frames * (views - 1)
+        want = len(kcv.launch_chunks(pairs, h, w, planes))
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        _zero(counters)
+        t = time.perf_counter()
+        idepth, prob, normal = fwd(u8, cams)
+        if cuda:
+            torch.cuda.synchronize()
+        flush_s = time.perf_counter() - t
+        launches = _launches(counters)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+        assert tuple(idepth.shape) == (frames, h, w, 1) and tuple(normal.shape) == (frames, h, w, 3)
+        assert all(bool(torch.isfinite(o).all()) for o in (idepth, prob, normal))
+        if cuda:
+            assert want >= 2 and launches == {"cost_volume": want, "depth_to_normal": 1}, launches
+        depth = 1.0 / (idepth[..., 0] + 1e-8)
+        kinv = invert_intrinsics(torch.from_numpy(cams[:, 0, 1, :3, :3]).to(depth.device))
+        plain, _ = dispatch.depth_to_normal(depth, kinv, k, backend="torch")
+        n_err = (normal - plain).abs().max().item()
+        assert n_err == 0, n_err
+        ones = [fwd(u8[i:i + 1], cams[i:i + 1]) for i in range(frames)]
+        idepth1 = torch.cat([o[0] for o in ones])
+        metrics = [aggregate_metrics([frame_metrics(1.0 / (d[i, :, :, 0] + 1e-8), gt[i])
+                                      for i in range(frames)])
+                   for d in (idepth.cpu().numpy(), idepth1.cpu().numpy())]
+        ok, worst, name = metrics_close(metrics[0], metrics[1], 1e-4, ratio_abs=3e-5)
+        diffs = {m: float(f"{abs(metrics[0][m] - metrics[1][m]):.3e}") for m in EVAL_METRICS}
+        gap = (idepth - idepth1).abs().max().item()
+        l2 = ((idepth - idepth1).norm() / idepth1.norm()).item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags["cuda.matmul.allow_tf32"]
+        torch.backends.cudnn.allow_tf32 = flags["cudnn.allow_tf32"]
+    print(f"eval flush of {frames} frames x {views} views at {h}x{w} ({pairs} pairs x {planes} "
+          f"planes = {pairs * planes * h * w} costs, f32, PyTorch's defaults): launches "
+          f"{launches}, {flush_s:.3f} s (first flush at this shape), peak "
+          f"{peak:.3f} GiB; normals against the plain version on its depth max abs {n_err:.3e} "
+          f"(must be 0); against frame batch 1: largest relative metric difference {worst:.3e} "
+          f"({name}; tol 1e-4 relative, a1-a3 3e-5 absolute), absolute differences {diffs}, "
+          f"idepth max abs {gap:.3e}, "
+          f"relative L2 {l2:.3e}; phase {time.perf_counter() - t_phase:.2f} s [{smi}]")
+    assert ok, (name, worst)
+    return launches
 
 
 # -- phase 8: serving under load and the command line ------------------------
@@ -3308,7 +3534,9 @@ def main() -> int:
                 nrm_err = e
     check_normals(torch, *normals_inputs(torch, 1, 480, 640, seed=30), K)
     check_normals(torch, *normals_inputs(torch, 2, 157, 203, seed=31), K)
-    wide_k, largest_k = check_wide_k(torch, smi)
+    wide_k = check_wide_k(torch, smi)
+    chunked = check_cost_volume_chunks(torch, smi)
+    normals_chunks = check_normals_batch_chunks(torch)
 
     # 3. the serving slice, with the launch counters
     counters = {"cost_volume": kcv.cost_volume_kernel, "depth_to_normal": kn.depth_to_normal_kernel}
@@ -3385,6 +3613,8 @@ def main() -> int:
 
     # 7. the evaluation slice
     launches_eval, eval_s = eval_phase(torch, counters, smi)
+    # 7e. the 7-view flush of 19 frames at 480x640: 114 pairs, past 2^31 costs
+    launches_wide_flush = wide_flush_phase(torch, counters, smi)
 
     # 8. serving under load and the command line
     launches_batcher, load = batcher_phase(torch, counters, smi, session, weights, u8, cams)
@@ -3417,6 +3647,7 @@ def main() -> int:
     def more(name):
         """The kernel's launches on the paths after phase 3, and its total."""
         paths = {"launches_train_step": per_step[name], "launches_eval": launches_eval[name],
+                 "launches_wide_flush": launches_wide_flush[name],
                  "launches_batcher": launches_batcher[name], "launches_cli": launches_cli[name],
                  "launches_bf16_step": launches_bf16[name],
                  "launches_remat_step": launches_remat[name],
@@ -3444,7 +3675,8 @@ def main() -> int:
          "launches": launches["cost_volume"], "max_abs_err": cv_err, "ms": cv_ms,
          "plain_ms": cv_plain_ms, "bound_ms": cv_bound, "bound_by": cv_by, "library_ms": None,
          **more("cost_volume"), "train_shape_ms": train_cv["ms"],
-         "train_shape_plain_ms": train_cv["plain_ms"], "train_shape_bound_ms": train_cv["bound_ms"]},
+         "train_shape_plain_ms": train_cv["plain_ms"], "train_shape_bound_ms": train_cv["bound_ms"],
+         "chunked": chunked},
         {"name": "depth_to_normal", "route": "cuda",
          "source": "cnmnet_tpu_torch/kernels/csrc/depth_to_normal.cu",
          "replaces": "cnmnet_tpu/kernels/normals_pallas.py:168",
@@ -3452,7 +3684,7 @@ def main() -> int:
          "plain_ms": rows[1][1], "bound_ms": rows[1][2], "bound_by": rows[1][3],
          "library_ms": None, **more("depth_to_normal"), "train_shape_ms": nt["kernel"], "train_shape_plain_ms": nt["plain"],
          "train_shape_bound_ms": nt["bound"], "backward": "plain autograd",
-         "grad_max_abs_err": nrm_grad_err, "largest_k": largest_k,
+         "grad_max_abs_err": nrm_grad_err, "batch_chunk_launches": normals_chunks,
          "k_generic": {f"k{k}_b2": row for k, row in wide_k.items()}},
     ]
     print(f"build_s {build_s:.2f}; predict ms/frame b1 {rates[1][0]:.3f} b8 {rates[8][0]:.3f}; "

@@ -15,7 +15,15 @@ reference rows with ``row_offset``, the global row of the first, against
 the whole source of ``Hs`` rows; the untiled call is ``row_offset=0`` and
 ``Hs = H``.
 
-``cost_volume_kernel.launches`` counts the kernel's launches.
+The kernel indexes in 32 bits, so one launch takes fewer than 2^31
+(``INDEX_LIMIT``) costs, reference elements and packed-source elements
+(``check_sizes``). ``cost_volume_kernel`` covers a larger volume in several
+launches (``launch_chunks``): chunks of whole pairs, or, where one pair's
+volume alone reaches the limit, chunks of that pair's planes. Pairs and
+planes are independent, so the result is the one launch's bit for bit.
+
+``cost_volume_kernel.launches`` counts the kernel's launches: one per
+chunk.
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ def bordered_source(src_images: torch.Tensor) -> torch.Tensor:
 
 
 def check_sizes(B: int, H: int, W: int, P: int, Hs: int = None) -> None:
-    """Refuse shapes whose volume, reference rows or packed source (``Hs``
+    """Refuse a launch whose volume, reference rows or packed source (``Hs``
     rows, ``H`` by default; larger than the source) reach 2^31 elements:
     the kernel's index arithmetic is 32-bit."""
     Hs = H if Hs is None else Hs
@@ -67,6 +75,32 @@ def check_sizes(B: int, H: int, W: int, P: int, Hs: int = None) -> None:
         if n >= INDEX_LIMIT:
             raise ValueError(f"cost volume {B}x{P}x{H}x{W}: its {name} has {n} elements, "
                              f"at or above the kernel's 32-bit limit of {INDEX_LIMIT}")
+
+
+def _even_split(n: int, most: int) -> list:
+    """``[(a, b), ...]`` covering ``[0, n)`` in as few pieces of at most
+    ``most`` as there can be, their sizes within one of each other."""
+    if n <= 0:
+        return []
+    count = -(-n // most)
+    size = -(-n // count)
+    return [(a, min(a + size, n)) for a in range(0, n, size)]
+
+
+def launch_chunks(B: int, H: int, W: int, P: int, Hs: int = None) -> list:
+    """``[(b0, b1, p0, p1), ...]``: the launches that cover a ``[B, P, H,
+    W]`` volume (reference rows against a source of ``Hs`` rows), each of
+    pairs ``b0:b1`` and planes ``p0:p1`` and each below ``INDEX_LIMIT`` on
+    all three counts of ``check_sizes``. Whole pairs where one pair fits;
+    else each pair in chunks of its planes. Raises where one pair's
+    reference or packed source alone reaches the limit."""
+    Hs = H if Hs is None else Hs
+    pair = max(P * H * W, H * W * 3, math.prod(bordered_shape(1, Hs, W)))
+    if pair < INDEX_LIMIT:
+        return [(b0, b1, 0, P) for b0, b1 in _even_split(B, (INDEX_LIMIT - 1) // pair)]
+    check_sizes(1, H, W, 1, Hs)
+    planes = _even_split(P, (INDEX_LIMIT - 1) // (H * W))
+    return [(b, b + 1, p0, p1) for b in range(B) for p0, p1 in planes]
 
 
 def cost_volume_kernel(
@@ -81,7 +115,9 @@ def cost_volume_kernel(
     row ``row_offset`` on, the ``[B, Hs, W, 3]`` f32 source, ``[B, 12]``
     coefficients and the ``[P]`` plane table, all contiguous on one CUDA
     device -> ``[B, P, H, W]`` in ``out_dtype`` (f32 or bf16; the cost
-    accumulates in f32 either way). Does not synchronise."""
+    accumulates in f32 either way), in one launch for each chunk of
+    ``launch_chunks``: one for every volume below 2^31 costs. Does not
+    synchronise."""
     if not ref_images.is_cuda:
         raise ValueError("cost_volume_kernel takes CUDA tensors")
     B, H, W, C = ref_images.shape
@@ -102,21 +138,25 @@ def cost_volume_kernel(
             raise ValueError(f"{name} must be contiguous on {ref_images.device}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    check_sizes(B, H, W, P, Hs)
+    chunks = launch_chunks(B, H, W, P, Hs)
     lib = build.load("cost_volume")
     fn = lib.cnm_cost_volume
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    scratch = torch.empty(bordered_shape(B, Hs, W), dtype=torch.float32, device=ref_images.device)
+    most = max((b1 - b0 for b0, b1, _, _ in chunks), default=0)
+    scratch = torch.empty(bordered_shape(most, Hs, W), dtype=torch.float32, device=ref_images.device)
     out = torch.empty((B, P, H, W), dtype=out_dtype, device=ref_images.device)
     with torch.cuda.device(ref_images.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(
-            ref_images.data_ptr(), src_images.data_ptr(), scratch.data_ptr(), coefs.data_ptr(),
-            idepths.data_ptr(), out.data_ptr(), B, H, W, P, Hs, row_offset,
-            int(out_dtype == torch.bfloat16), stream,
-        )
-    build.check(status, "cnm_cost_volume")
-    cost_volume_kernel.launches += 1
+        for b0, b1, p0, p1 in chunks:
+            check_sizes(b1 - b0, H, W, p1 - p0, Hs)
+            status = fn(
+                ref_images[b0:b1].data_ptr(), src_images[b0:b1].data_ptr(), scratch.data_ptr(),
+                coefs[b0:b1].data_ptr(), idepths[p0:p1].data_ptr(),
+                out[b0:b1, p0:p1].data_ptr(), b1 - b0, H, W, p1 - p0, Hs, row_offset,
+                int(out_dtype == torch.bfloat16), stream,
+            )
+            build.check(status, "cnm_cost_volume")
+            cost_volume_kernel.launches += 1
     return out
 
 

@@ -54,7 +54,10 @@
 // 4. Whole waves. The grid is persistent: as many blocks as fit on the card
 //    at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), each
 //    walking (pair, row, W chunk, plane group) items. All index arithmetic
-//    is 32-bit; the wrapper refuses volumes of 2^31 elements or more.
+//    is 32-bit, so a launch stays below 2^31 elements of volume, reference
+//    and packed source; the wrapper (kernels/cost_volume.py) covers a
+//    larger volume in several launches, of whole pairs or of one pair's
+//    planes, each writing its part of the one output.
 // 5. No shared memory, so the launch asks for the L1 side of the carveout.
 //
 // The two quotients X / d and Y / d stay two IEEE divisions: one shared

@@ -54,15 +54,14 @@
 // added first to last, vertical pass then horizontal): the kernel and the
 // plain version give the same normals, not merely equally good ones.
 //
-// Odd k above 17 take one k-generic instantiation (depth_to_normal_any):
-// the same tiles, the same zero-filled cp.async staging and the same tap
-// order (vertical pass then horizontal, each window summed first to last
-// from 0), with k read at run time and nothing unrolled, so it too equals
-// the plain version bit for bit. Its staged tile grows with R = k/2:
-// (8 + 2R) x (64 + 2R) points and 8 x (64 + 2R) vertical sums of the 9
-// monomials (shared_bytes below); it launches while that fits the block's
-// opt-in shared memory (227 KB on an H100: up to k = 87).
-// Any H and W.
+// Odd k above 17 take one k-generic instance (depth_to_normal_any): the
+// same output tiles and the same tap order (vertical pass then
+// horizontal, each window summed first to last from 0), with k read at run
+// time, so it too equals the plain version bit for bit. It walks the
+// tile's staged columns in pieces of 128 and keeps one piece's vertical
+// sums in shared memory (36,864 B at any k), so it takes every odd k.
+// Any H and W; B up to 65,535 a launch (the grid's z extent: the wrapper
+// splits a larger batch).
 
 #include <cuda_runtime.h>
 
@@ -80,6 +79,7 @@ constexpr int kSeg = 4;        // output rows per thread in the vertical pass
 constexpr int kRun = 2;        // adjacent outputs per thread in the horizontal pass
 constexpr int kMaxK = 17;
 constexpr int kMaxDevices = 64;
+constexpr int kMaxBatch = 65535;  // maps a launch: the grid's z extent
 static_assert(kTileW / kRun * kTileH == kThreads, "one run of outputs per thread");
 static_assert(kTileH % kSeg == 0, "whole vertical segments");
 
@@ -309,110 +309,139 @@ int launch(const float* depth, const float* kinv, float* out, int B, int H, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory of one block at window k: the masked points, then the raw
-// depth or, once the points are formed, the 9 x kTileH rows of vertical
-// sums (Tile<K>::Bytes for the unrolled instances).
+// Odd k > kMaxK: one k-generic instance whose shared memory does not
+// depend on k. The block keeps the unrolled form's 64 x 8 output tile and
+// walks its staged columns (64 + k - 1 of them) in pieces of kPiece, left
+// to right. For each piece:
+//
+// 1. Vertical pass. Thread (column, segment) walks its staged column down
+//    from the first row of its segment's kSegRows output rows, reading the
+//    depth straight from global memory (a warp reads 32 adjacent columns
+//    of one row; 0 outside the image, as cp.async fills it), forms the
+//    point and its 9 monomials once, and adds them to the running sums of
+//    every output row of the segment whose window holds that row. Rows
+//    arrive top to bottom, so each window sum adds its k taps first to
+//    last, from 0; the 9 x kSegRows sums live in registers.
+// 2. The piece's 9 x kTileH x kPiece vertical sums go to shared memory.
+// 3. Horizontal pass. A thread owns kRun adjacent outputs of a row and
+//    adds the piece's columns that lie in each window, left to right, to
+//    running sums kept in registers across the pieces.
+//
+// So every product is taken once per point and segment, as in the unrolled
+// form, the taps of every window sum are added in the plain version's
+// order, and the block's shared memory is 9 x kTileH x kPiece floats at
+// any k (shared_bytes).
+constexpr int kPiece = 128;                 // staged columns a piece
+constexpr int kSegs = kThreads / kPiece;    // vertical segments a column
+constexpr int kSegRows = kTileH / kSegs;    // output rows a segment
+static_assert(kSegs * kPiece == kThreads && kSegs * kSegRows == kTileH,
+              "one (column, segment) a thread in the vertical pass");
+constexpr size_t kAnyBytes = 9 * kTileH * kPiece * sizeof(float);
+
+// Shared memory of one block at window k: for the unrolled instances the
+// masked points, then the raw depth or, once the points are formed, the
+// 9 x kTileH rows of vertical sums (Tile<K>::Bytes); above kMaxK one
+// piece's vertical sums.
 __host__ __device__ constexpr size_t shared_bytes(int k) {
   const int r = k / 2;
   const size_t sh = kTileH + 2 * r;
   const size_t pitch = (kTileW + 2 * r + 3) / 4 * 4;
   const size_t stage = sh * pitch;
   const size_t vsum = 9 * kTileH * pitch;
-  return (3 * stage + (stage > vsum ? stage : vsum)) * sizeof(float);
+  return k > kMaxK ? kAnyBytes : (3 * stage + (stage > vsum ? stage : vsum)) * sizeof(float);
 }
 static_assert(shared_bytes(9) == Tile<9>::Bytes && shared_bytes(17) == Tile<17>::Bytes,
               "one layout for both forms");
 
-// Odd k > kMaxK: Tile<K>'s layout with k at run time. Each thread forms a
-// window's monomials from the staged points as it sums them (the unrolled
-// form keeps them in registers), so a product is taken k times, not once;
-// every product and sum rounds as in the plain version.
 __global__ void __launch_bounds__(kThreads) depth_to_normal_any(
     const float* __restrict__ depth, const float* __restrict__ kinv,
     float* __restrict__ out, int H, int W, int K, int row_offset, float vmin, float vmax,
     float det_eps, float norm_eps) {
+  extern __shared__ __align__(16) float vsum[];  // [9][kTileH][kPiece]
   const int R = K / 2;
-  const int SH = kTileH + 2 * R;
-  const int SW = kTileW + 2 * R;
-  const int Pitch = (SW + 3) / 4 * 4;
-  const int Stage = SH * Pitch;
-  extern __shared__ __align__(16) float smem[];
-  float* px = smem;
-  float* py = px + Stage;
-  float* pz = py + Stage;
-  float* raw = pz + Stage;
-  float* vsum = raw;
-
+  const int SW = kTileW + 2 * R;  // staged columns
   const int b = blockIdx.z;
   const int row0 = blockIdx.y * kTileH;
   const int col0 = blockIdx.x * kTileW;
   const int tid = threadIdx.x;
   const float* d_img = depth + static_cast<size_t>(b) * H * W;
-
-  for (int i = tid; i < SH * SW; i += kThreads) {
-    const int yy = i / SW;
-    const int xx = i - yy * SW;
-    const int gy = row0 - R + yy;
-    const int gx = col0 - R + xx;
-    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    copy4_async(raw + yy * Pitch + xx, inside ? d_img + static_cast<size_t>(gy) * W + gx : d_img,
-                inside);
-  }
-  wait_async_copies();
-  __syncthreads();
-
   const float* Kb = kinv + 9 * b;
   const float k0 = Kb[0], k1 = Kb[1], k2 = Kb[2], k3 = Kb[3], k4 = Kb[4], k5 = Kb[5];
   const float k6 = Kb[6], k7 = Kb[7], k8 = Kb[8];
-  for (int i = tid; i < SH * SW; i += kThreads) {
-    const int yy = i / SW;
-    const int xx = i - yy * SW;
-    const int at = yy * Pitch + xx;
-    const float d = raw[at];
-    float X = 0.0f, Y = 0.0f, Z = 0.0f;
-    if (d > vmin && d < vmax) {
-      const float u = static_cast<float>(col0 - R + xx);
-      const float v = static_cast<float>(row0 - R + yy + row_offset);
-      X = mul(add(add(mul(k0, u), mul(k1, v)), k2), d);
-      Y = mul(add(add(mul(k3, u), mul(k4, v)), k5), d);
-      Z = mul(add(add(mul(k6, u), mul(k7, v)), k8), d);
-    }
-    px[at] = X;
-    py[at] = Y;
-    pz[at] = Z;
-  }
-  __syncthreads();
 
-  // vertical k-tap sums: one (staged column, output row) a thread
-  for (int i = tid; i < SW * kTileH; i += kThreads) {
-    const int xx = i % SW;
-    const int r = i / SW;
-    for (int j = 0; j < 9; ++j) {
-      float acc = 0.0f;
-      for (int t = 0; t < K; ++t) {
-        const int at = (r + t) * Pitch + xx;
-        acc = add(acc, monomial(j, px[at], py[at], pz[at]));
-      }
-      vsum[(j * kTileH + r) * Pitch + xx] = acc;
-    }
-  }
-  __syncthreads();
-
-  const int ty = tid / (kTileW / kRun);
+  const int vc = tid % kPiece;                // the vertical pass's column in the piece
+  const int vr0 = (tid / kPiece) * kSegRows;  // and its segment's first output row
+  const int ty = tid / (kTileW / kRun);       // the horizontal pass's outputs
   const int tx = (tid % (kTileW / kRun)) * kRun;
+  float s[kRun][9];
+#pragma unroll
+  for (int o = 0; o < kRun; ++o)
+#pragma unroll
+    for (int j = 0; j < 9; ++j) s[o][j] = 0.0f;
+
+  for (int c0 = 0; c0 < SW; c0 += kPiece) {
+    const int c = c0 + vc;  // staged column: global column col0 - R + c
+    if (c < SW) {
+      float acc[9][kSegRows];
+#pragma unroll
+      for (int j = 0; j < 9; ++j)
+#pragma unroll
+        for (int q = 0; q < kSegRows; ++q) acc[j][q] = 0.0f;
+      const int gx = col0 - R + c;
+      const bool col_inside = gx >= 0 && gx < W;
+      const float u = static_cast<float>(gx);
+      // staged row vr0 + t; output row vr0 + q takes it as tap t - q
+#pragma unroll 2
+      for (int t = 0; t < kSegRows + K - 1; ++t) {
+        const int gy = row0 - R + vr0 + t;
+        const float d =
+            col_inside && gy >= 0 && gy < H ? __ldg(d_img + static_cast<size_t>(gy) * W + gx) : 0.0f;
+        float X = 0.0f, Y = 0.0f, Z = 0.0f;
+        if (d > vmin && d < vmax) {
+          const float v = static_cast<float>(gy + row_offset);
+          X = mul(add(add(mul(k0, u), mul(k1, v)), k2), d);
+          Y = mul(add(add(mul(k3, u), mul(k4, v)), k5), d);
+          Z = mul(add(add(mul(k6, u), mul(k7, v)), k8), d);
+        }
+        float m[9];
+#pragma unroll
+        for (int j = 0; j < 9; ++j) m[j] = monomial(j, X, Y, Z);
+#pragma unroll
+        for (int q = 0; q < kSegRows; ++q) {
+          if (t >= q && t < q + K) {
+#pragma unroll
+            for (int j = 0; j < 9; ++j) acc[j][q] = add(acc[j][q], m[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 9; ++j)
+#pragma unroll
+        for (int q = 0; q < kSegRows; ++q) vsum[(j * kTileH + vr0 + q) * kPiece + vc] = acc[j][q];
+    }
+    __syncthreads();
+
+    // output tx takes staged columns tx .. tx + K - 1, output tx + 1 the
+    // next K; this piece holds columns c0 .. min(c0 + kPiece, SW) - 1
+    const int lo = max(tx, c0);
+    const int hi = min(tx + K, min(c0 + kPiece, SW) - 1);
+    for (int cc = lo; cc <= hi; ++cc) {
+      const float* col = vsum + ty * kPiece + (cc - c0);
+      const bool first = cc < tx + K;
+      const bool second = cc > tx;
+#pragma unroll
+      for (int j = 0; j < 9; ++j) {
+        const float v = col[j * kTileH * kPiece];
+        if (first) s[0][j] = add(s[0][j], v);
+        if (second) s[1][j] = add(s[1][j], v);
+      }
+    }
+    __syncthreads();  // the next piece overwrites vsum
+  }
+
   const int gy = row0 + ty;
   const int gx = col0 + tx;
   if (gy >= H || gx >= W) return;
-  float s[kRun][9];
-  for (int j = 0; j < 9; ++j) {
-    const float* row = vsum + (j * kTileH + ty) * Pitch + tx;
-#pragma unroll
-    for (int o = 0; o < kRun; ++o) {
-      float acc = 0.0f;
-      for (int t = 0; t < K; ++t) acc = add(acc, row[o + t]);
-      s[o][j] = acc;
-    }
-  }
   float3 n[kRun];
 #pragma unroll
   for (int o = 0; o < kRun; ++o) n[o] = solve(s[o], det_eps, norm_eps);
@@ -437,42 +466,35 @@ __global__ void __launch_bounds__(kThreads) depth_to_normal_any(
 int launch_any(const float* depth, const float* kinv, float* out, int B, int H, int W, int k,
                int row_offset, float vmin, float vmax, float det_eps, float norm_eps,
                cudaStream_t stream) {
-  static size_t allowed[kMaxDevices];  // the opt-in size set so far, per device
+  static bool ready[kMaxDevices];
   int dev = 0;
   int status = static_cast<int>(cudaGetDevice(&dev));
   if (status != 0) return status;
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  int optin = 0;
-  status = static_cast<int>(
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
-  if (status != 0) return status;
-  const size_t bytes = shared_bytes(k);
-  if (bytes > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes > allowed[dev]) {
+  if (!ready[dev]) {  // needed only where a variant's tile passes 48 KB
     status = static_cast<int>(cudaFuncSetAttribute(
         depth_to_normal_any, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes)));
+        static_cast<int>(kAnyBytes)));
     if (status != 0) return status;
-    allowed[dev] = bytes;
+    ready[dev] = true;
   }
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  depth_to_normal_any<<<grid, kThreads, bytes, stream>>>(depth, kinv, out, H, W, k, row_offset,
-                                                         vmin, vmax, det_eps, norm_eps);
+  depth_to_normal_any<<<grid, kThreads, kAnyBytes, stream>>>(
+      depth, kinv, out, H, W, k, row_offset, vmin, vmax, det_eps, norm_eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // depth: [B, H, W] f32, rows from global row row_offset on; kinv: [B, 3, 3]
-// f32; out: [B, H, W, 3] f32, all contiguous; k odd, unrolled up to kMaxK,
-// k-generic above while its tile fits the block's shared memory
-// (cnm_depth_to_normal_shared_bytes). Returns cudaGetLastError() after the
-// launch.
+// f32; out: [B, H, W, 3] f32, all contiguous; B at most kMaxBatch; k odd,
+// unrolled up to kMaxK, k-generic above. Returns cudaGetLastError() after
+// the launch.
 extern "C" int cnm_depth_to_normal(const float* depth, const float* kinv, float* out,
                                    int B, int H, int W, int k, int row_offset, float vmin,
                                    float vmax, float det_eps, float norm_eps,
                                    cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || k < 1 || k % 2 == 0)
+  if (B <= 0 || B > kMaxBatch || H <= 0 || W <= 0 || k < 1 || k % 2 == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (k > kMaxK)
     return launch_any(depth, kinv, out, B, H, W, k, row_offset, vmin, vmax, det_eps, norm_eps,
@@ -490,7 +512,8 @@ extern "C" int cnm_depth_to_normal(const float* depth, const float* kinv, float*
 }
 
 // Dynamic shared memory of one block at window k (0 for an even or
-// non-positive k): what the wrapper holds against the device's opt-in limit.
+// non-positive k): the wrapper's kernels/normals.shared_bytes, compared on the
+// card.
 extern "C" size_t cnm_depth_to_normal_shared_bytes(int k) {
   return k < 1 || k % 2 == 0 ? 0 : shared_bytes(k);
 }

@@ -13,11 +13,12 @@ inputs: the JAX kernel's ``custom_vjp`` (``_fwd``/``_bwd``) does the same,
 and neither package has a backward kernel.
 
 Every odd k launches: up to ``UNROLLED_K`` an instance unrolled for its
-k, above it one k-generic instance, while its staged tile
-(``shared_bytes``) fits the block's opt-in shared memory (227 KB on an
-H100: ``max_k``, k = 87). A larger k raises; the CPU path takes any odd k.
+k, above it one k-generic instance whose shared memory (``shared_bytes``)
+does not depend on k. A launch takes at most ``MAX_BATCH`` maps (the CUDA
+grid's z extent); the wrapper splits a larger batch (``batch_chunks``).
 
-``depth_to_normal_kernel.launches`` counts the kernel's launches.
+``depth_to_normal_kernel.launches`` counts the kernel's launches: one per
+chunk of ``batch_chunks``.
 """
 
 from __future__ import annotations
@@ -32,34 +33,30 @@ from cnmnet_tpu_torch.ops import normals as plain
 
 UNROLLED_K = 17  # csrc/depth_to_normal.cu:kMaxK
 TILE_W, TILE_H = 64, 8  # the kernel's output tile
+PIECE_W = 128  # staged columns a piece of the k-generic instance
+MAX_BATCH = 65535  # maps a launch: csrc/depth_to_normal.cu:kMaxBatch
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
 
 
 def shared_bytes(k_size: int) -> int:
     """Dynamic shared memory of one block at an odd window ``k_size``
-    (``csrc/depth_to_normal.cu:shared_bytes``): the staged points X, Y, Z
-    of the tile and its halo, then the raw depth or the 9 x ``TILE_H`` rows
-    of vertical sums, whichever is larger; rows padded to 16 bytes."""
+    (``csrc/depth_to_normal.cu:shared_bytes``). Unrolled instances: the
+    staged points X, Y, Z of the tile and its halo, then the raw depth or
+    the 9 x ``TILE_H`` rows of vertical sums, whichever is larger; rows
+    padded to 16 bytes. The k-generic instance: one piece's 9 x ``TILE_H``
+    x ``PIECE_W`` vertical sums, at any k."""
+    if k_size > UNROLLED_K:
+        return 9 * TILE_H * PIECE_W * 4
     r = k_size // 2
     pitch = (TILE_W + 2 * r + 3) // 4 * 4
     stage = (TILE_H + 2 * r) * pitch
     return (3 * stage + max(stage, 9 * TILE_H * pitch)) * 4
 
 
-def max_k(device=None) -> int:
-    """The largest odd k whose tile fits a block's opt-in shared memory on
-    ``device`` (the current CUDA device when None)."""
-    props = torch.cuda.get_device_properties(device if device is not None
-                                             else torch.cuda.current_device())
-    return largest_k(props.shared_memory_per_block_optin)
-
-
-def largest_k(limit_bytes: int) -> int:
-    """The largest odd k with ``shared_bytes(k) <= limit_bytes``."""
-    k = 1
-    while shared_bytes(k + 2) <= limit_bytes:
-        k += 2
-    return k
+def batch_chunks(B: int) -> list:
+    """``[(b0, b1), ...]``: the launches that cover ``B`` maps, in order,
+    each of at most ``MAX_BATCH``."""
+    return [(b, min(b + MAX_BATCH, B)) for b in range(0, B, MAX_BATCH)]
 
 
 def depth_to_normal_kernel(
@@ -74,7 +71,8 @@ def depth_to_normal_kernel(
 ) -> torch.Tensor:
     """Launch the kernel: ``[B, H, W]`` f32 depth (rows from global row
     ``row_offset`` on) and ``[B, 3, 3]`` f32 K^-1, contiguous on one CUDA
-    device -> unit normals ``[B, H, W, 3]`` f32. Does not synchronise."""
+    device -> unit normals ``[B, H, W, 3]`` f32, in one launch for each
+    chunk of ``batch_chunks(B)``. Does not synchronise."""
     if not depth.is_cuda:
         raise ValueError("depth_to_normal_kernel takes CUDA tensors")
     if depth.dim() != 3 or depth.dtype != torch.float32 or not depth.is_contiguous():
@@ -85,24 +83,19 @@ def depth_to_normal_kernel(
         raise ValueError(f"intrinsics_inv: want contiguous f32 ({B}, 3, 3) on {depth.device}")
     if k_size % 2 != 1 or k_size < 1:
         raise ValueError(f"k_size must be odd and positive, got {k_size}")
-    if k_size > UNROLLED_K and k_size > max_k(depth.device):
-        props = torch.cuda.get_device_properties(depth.device)
-        raise ValueError(
-            f"k_size {k_size}: its tile needs {shared_bytes(k_size)} B of shared memory, beyond "
-            f"the {props.shared_memory_per_block_optin} B a block may take on {props.name}; "
-            f"the kernel takes odd k up to {max_k(depth.device)} there, the CPU path any odd k")
     lib = build.load("depth_to_normal")
     fn = lib.cnm_depth_to_normal
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     out = torch.empty((B, H, W, 3), dtype=torch.float32, device=depth.device)
     with torch.cuda.device(depth.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(
-            depth.data_ptr(), intrinsics_inv.data_ptr(), out.data_ptr(), B, H, W, k_size,
-            row_offset, valid_min, valid_max, det_eps, norm_eps, stream,
-        )
-    build.check(status, "cnm_depth_to_normal")
-    depth_to_normal_kernel.launches += 1
+        for b0, b1 in batch_chunks(B):
+            status = fn(
+                depth[b0:b1].data_ptr(), intrinsics_inv[b0:b1].data_ptr(), out[b0:b1].data_ptr(),
+                b1 - b0, H, W, k_size, row_offset, valid_min, valid_max, det_eps, norm_eps, stream,
+            )
+            build.check(status, "cnm_depth_to_normal")
+            depth_to_normal_kernel.launches += 1
     return out
 
 

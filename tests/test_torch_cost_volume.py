@@ -12,6 +12,8 @@ x ~ 130) and the cost by that times the image's per-pixel gradient (up to
 card and is held against the plain version there by ``chip_smoke.py``.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -292,3 +294,141 @@ def test_kernel_ablations_apply_to_the_sources():
         for name, subs in variants.items():
             body = ablate.variant_source(source, name, subs)
             assert all(new in body for _, new in subs), (source, name)
+
+
+# -- launches past 2^31 elements ---------------------------------------------------
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that passes the wrappers' ``is_cuda`` check, so that
+    their launch loop runs here against a stand-in library."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _no_card_context(monkeypatch):
+    """``torch.cuda.device`` and the current stream for the stand-in."""
+    import contextlib
+    import types
+
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+
+
+class _PlainCostVolumeLib:
+    """Stands in for ``csrc/cost_volume.cu``'s library: each launch is
+    located in the caller's tensors by its pointers, recorded, and computed
+    by the plain version (the kernel's rounding of the homography terms from
+    the coefficients, at the launch's ``row_offset``) into the memory at its
+    output pointer."""
+
+    def __init__(self, ref, src, coefs, idepths):
+        self.ref, self.src, self.coefs, self.idepths = ref, src, coefs, idepths
+        self.calls = []
+
+    @property
+    def cnm_cost_volume(self):
+        return self
+
+    def __call__(self, ref_p, src_p, scratch_p, coef_p, id_p, out_p, B, H, W, P, Hs, row_offset,
+                 out_bf16, stream):
+        b0 = (ref_p - self.ref.data_ptr()) // (H * W * 3 * 4)
+        p0 = (id_p - self.idepths.data_ptr()) // 4
+        assert src_p == self.src[b0].data_ptr() and coef_p == self.coefs[b0].data_ptr()
+        kcv.check_sizes(B, H, W, P, Hs)
+        self.calls.append((b0, b0 + B, p0, p0 + P, Hs, row_offset))
+        vol = _plain_from_coefs(self.ref[b0:b0 + B], self.src[b0:b0 + B],
+                                self.coefs[b0:b0 + B], self.idepths[p0:p0 + P], row_offset)
+        vol = vol.to(torch.bfloat16 if out_bf16 else torch.float32).reshape(-1)
+        cell = ctypes.c_uint16 if out_bf16 else ctypes.c_float
+        torch.frombuffer((cell * vol.numel()).from_address(out_p), dtype=vol.dtype).copy_(vol)
+        return 0
+
+
+def _plain_from_coefs(ref, src, coefs, idepths, row_offset=0):
+    """The plain volume ``[B, P, H, W]`` from the kernel's coefficients."""
+    ref, src, coefs, idepths = (t.as_subclass(torch.Tensor) for t in (ref, src, coefs, idepths))
+    B, H, W, _ = ref.shape
+    v, u = torch.meshgrid(torch.arange(row_offset, row_offset + H, dtype=torch.float32),
+                          torch.arange(W, dtype=torch.float32), indexing="ij")
+    k = coefs[:, :9].reshape(B, 3, 3, 1)
+    terms = k[:, :, 0] * u.reshape(-1) + k[:, :, 1] * v.reshape(-1) + k[:, :, 2]
+    return tcv.plane_sweep_cost_volume(ref, src, terms, coefs[:, 9:, None], idepths)
+
+
+def _covers(chunks, B, P):
+    """Each (pair, plane) of ``[0, B) x [0, P)`` in exactly one chunk, the
+    chunks in order."""
+    seen = np.zeros((B, P), np.int64)
+    for b0, b1, p0, p1 in chunks:
+        seen[b0:b1, p0:p1] += 1
+    assert (seen == 1).all(), seen
+    assert chunks == sorted(chunks)
+
+
+@pytest.mark.parametrize("B, H, W, P, Hs, limit", [
+    (110, 480, 640, 64, 480, 2**31),  # 7-Scenes at full size: 2 launches of 55 pairs
+    (114, 480, 640, 64, 480, 2**31),  # a 7-view flush of 19 frames
+    (16, 192, 256, 64, 192, 2**31),  # the bucket-8 volume: one launch
+    (7, 12, 20, 8, 12, 5000),  # lowered: volume 1920 a pair
+    (9, 6, 20, 8, 24, 5000),  # a row shard: the packed source (2688 a pair) binds
+])
+def test_launch_chunks_cover_the_pairs_below_the_limit(monkeypatch, B, H, W, P, Hs, limit):
+    monkeypatch.setattr(kcv, "INDEX_LIMIT", limit)
+    chunks = kcv.launch_chunks(B, H, W, P, Hs)
+    _covers(chunks, B, P)
+    for b0, b1, p0, p1 in chunks:
+        assert (p0, p1) == (0, P)  # whole pairs
+        kcv.check_sizes(b1 - b0, H, W, p1 - p0, Hs)  # each launch below the limit
+    if len(chunks) > 1:  # the fewest launches: one fewer would be over the limit
+        with pytest.raises(ValueError, match="limit"):
+            kcv.check_sizes(-(-B // (len(chunks) - 1)), H, W, P, Hs)
+    assert max(b1 - b0 for b0, b1, _, _ in chunks) - min(b1 - b0 for b0, b1, _, _ in chunks) <= 1
+    if limit == 2**31:
+        assert len(chunks) == {110: 2, 114: 2, 16: 1}[B]
+
+
+def test_launch_chunks_split_a_pair_over_the_limit_into_planes(monkeypatch):
+    """A pair whose volume alone reaches the limit is covered plane by
+    plane chunks; one whose reference or packed source reaches it raises,
+    naming the limit."""
+    monkeypatch.setattr(kcv, "INDEX_LIMIT", 1000)
+    chunks = kcv.launch_chunks(3, 8, 12, 20)  # 1920 a pair, 96 a plane: 10 planes a launch
+    _covers(chunks, 3, 20)
+    assert [c[1] - c[0] for c in chunks] == [1] * 6 and {c[3] - c[2] for c in chunks} == {10}
+    for b0, b1, p0, p1 in chunks:
+        kcv.check_sizes(b1 - b0, 8, 12, p1 - p0)
+    assert kcv.launch_chunks(0, 8, 12, 20) == []
+    with pytest.raises(ValueError, match="reference has 1152 elements.*limit of 1000"):
+        kcv.launch_chunks(1, 16, 24, 2)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_launches_chunks_into_one_volume(rng, monkeypatch, out_dtype):
+    """``cost_volume_kernel`` under a lowered limit, its library stood in by
+    the plain version: the launches cover the pairs (then one pair's planes)
+    with the caller's ``row_offset`` and source rows ``Hs``, each chunk lands
+    in its slice of the one output, the result equals one plain volume bit
+    for bit, and the counter adds one a launch."""
+    _no_card_context(monkeypatch)
+    B, H, Hs, W, P, offset = 5, 6, 8, 12, 16, 2
+    ref = torch.from_numpy(rng.standard_normal((B, H, W, 3)).astype(np.float32)).as_subclass(_OnCard)
+    src = torch.from_numpy(rng.standard_normal((B, Hs, W, 3)).astype(np.float32)).as_subclass(_OnCard)
+    coefs = np.tile(np.float32([1.02, 0.01, -0.4, -0.01, 0.99, 0.3, 0.0, 0.0, 1.0, 2.0, 0.5, 0.01]),
+                    (B, 1)) + 0.01 * rng.standard_normal((B, 12)).astype(np.float32)
+    coefs = torch.from_numpy(coefs.astype(np.float32)).as_subclass(_OnCard)
+    idepths = tcv.idepth_hypotheses(3.0, P).clone().as_subclass(_OnCard)
+    want = _plain_from_coefs(ref, src, coefs, idepths, offset).to(out_dtype)
+    # 1152 costs a pair, its packed source 768: 2 pairs a launch, then 8 planes
+    for limit, launches in ((3000, 3), (1000, 10)):
+        monkeypatch.setattr(kcv, "INDEX_LIMIT", limit)
+        lib = _PlainCostVolumeLib(ref, src, coefs, idepths)
+        monkeypatch.setattr(build, "load", lambda name: lib)
+        before = kcv.cost_volume_kernel.launches
+        got = kcv.cost_volume_kernel(ref, src, coefs, idepths, out_dtype, row_offset=offset)
+        assert kcv.cost_volume_kernel.launches - before == launches == len(lib.calls)
+        assert [c[:4] for c in lib.calls] == kcv.launch_chunks(B, H, W, P, Hs)
+        assert {c[4:] for c in lib.calls} == {(Hs, offset)}
+        assert got.dtype == out_dtype and torch.equal(got.as_subclass(torch.Tensor), want)

@@ -10,6 +10,8 @@ use: mean angle < 2x JAX's + 0.05 deg, max angle < max(2x JAX's, 1 deg).
 The points are plain products and agree to 1e-5.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -197,13 +199,152 @@ def test_kernel_staging_order_equals_plain(rng, k_size):
 
 def test_kernel_shared_memory_and_largest_k():
     """The wrapper's count of a block's shared memory is the kernel
-    header's (34,560 B at k = 9; the unrolled instances stay under the 48 KB
-    a launch takes without opting in), and the largest k for an H100's
-    227 KB opt-in is 87."""
+    header's (34,560 B at k = 9); the unrolled instances and the k-generic
+    one (one piece's vertical sums, 36,864 B) stay under the 48 KB a launch
+    takes without opting in, so there is no largest k."""
     assert kn.shared_bytes(9) == 34_560
-    assert kn.shared_bytes(kn.UNROLLED_K) <= 48 * 1024 < kn.shared_bytes(kn.UNROLLED_K + 2)
-    assert kn.largest_k(232_448) == 87
-    assert kn.shared_bytes(87) <= 232_448 < kn.shared_bytes(89)
+    assert kn.shared_bytes(kn.UNROLLED_K) <= 48 * 1024
+    assert kn.shared_bytes(kn.UNROLLED_K + 2) == 9 * kn.TILE_H * kn.PIECE_W * 4 == 36_864
+    assert not hasattr(kn, "max_k") and not hasattr(kn, "largest_k")
+
+
+def test_shared_memory_fits_an_h100_block_at_every_odd_k():
+    """Every odd k up to 1025 (and far beyond) takes at most the 232,448 B
+    a block may opt into on an H100; above ``UNROLLED_K`` the count no
+    longer grows with k."""
+    sizes = {k: kn.shared_bytes(k) for k in range(1, 1026, 2)}
+    assert max(sizes.values()) <= 232_448
+    assert {sizes[k] for k in sizes if k > kn.UNROLLED_K} == {kn.shared_bytes(100_001)}
+
+
+SEG_ROWS = 4  # csrc/depth_to_normal.cu:kSegRows, output rows a vertical segment
+
+
+def _generic_kernel_normals(depth, K_inv, k_size, vmin=0.0, vmax=10.0):
+    """The k-generic CUDA instance's order in plain PyTorch: 64 x 8 output
+    tiles whose 64 + k - 1 staged columns go in pieces of ``PIECE_W``. In a
+    piece, each column's segment of ``SEG_ROWS`` output rows walks the
+    column's rows top to bottom (depth 0 outside the image, each point
+    backprojected at its own pixel and masked) and adds each row's
+    monomials to the sum of every segment row whose window holds it; then
+    each output adds the piece's columns inside its window, left to right,
+    to running sums kept across the pieces. Every sum starts from 0."""
+    B, H, W = depth.shape
+    r = k_size // 2
+    TW, TH, PW = kn.TILE_W, kn.TILE_H, kn.PIECE_W
+    Ht, Wt, SW = -(-H // TH) * TH, -(-W // TW) * TW, TW + 2 * r
+    d = torch.nn.functional.pad(depth, (r, Wt - W + r, r, Ht - H + r))
+    v, u = torch.meshgrid(torch.arange(-r, Ht + r, dtype=torch.float32),
+                          torch.arange(-r, Wt + r, dtype=torch.float32), indexing="ij")
+    k = K_inv[:, :, :, None, None]
+    rays = k[:, :, 0] * u + k[:, :, 1] * v + k[:, :, 2]
+    p = torch.where(((d > vmin) & (d < vmax))[:, None], rays * d[:, None], torch.zeros(()))
+    x, y, z = p.unbind(1)
+    monos = torch.stack([x * x, x * y, x * z, y * y, y * z, z * z, x, y, z], -1)
+    moments = torch.zeros(B, Ht, Wt, 9)
+    outs = torch.arange(TW)
+    for row0 in range(0, Ht, TH):
+        for col0 in range(0, Wt, TW):
+            s = torch.zeros(B, TH, TW, 9)
+            for c0 in range(0, SW, PW):
+                cols = monos[:, :, col0 + c0:col0 + min(c0 + PW, SW)]
+                vsum = torch.zeros(B, TH, cols.shape[2], 9)
+                for vr0 in range(0, TH, SEG_ROWS):
+                    acc = torch.zeros(B, SEG_ROWS, cols.shape[2], 9)
+                    for t in range(SEG_ROWS + k_size - 1):
+                        m = cols[:, row0 + vr0 + t]
+                        for q in range(SEG_ROWS):
+                            if q <= t < q + k_size:
+                                acc[:, q] = acc[:, q] + m
+                    vsum[:, vr0:vr0 + SEG_ROWS] = acc
+                for cc in range(c0, c0 + cols.shape[2]):
+                    inside = ((outs <= cc) & (cc < outs + k_size))[None, None, :, None]
+                    s = torch.where(inside, s + vsum[:, :, cc - c0, None], s)
+            moments[:, row0:row0 + TH, col0:col0 + TW] = s
+    n = tn.solve_normal_equations(moments[:, :H, :W])
+    nx, ny, nz = n.unbind(-1)
+    return n / (torch.sqrt(nx * nx + ny * ny + nz * nz + 1e-20)[..., None] + 1e-5)
+
+
+@pytest.mark.parametrize("k_size, H, W", [(19, 13, 29), (89, 13, 29), (129, 13, 29),
+                                          (131, 64, 64)])
+def test_generic_kernel_order_equals_plain(rng, k_size, H, W):
+    """The k-generic instance's pieces, segments and tap order give the
+    plain version's normals exactly (up to the sign of zero): at k = 19
+    (one piece), 89 and 129 (two pieces; windows past every edge of the
+    13 x 29 map) and at k = 131 on 64 x 64, a window wider than both sides
+    and tiles whose halo lies outside the map."""
+    depth, K_inv = _inputs(rng, B=2, H=H, W=W, focal=0.9 * W)
+    d, k = torch.from_numpy(depth), torch.from_numpy(K_inv)
+    want, _ = tn.depth_to_normal(d, k, k_size)
+    np.testing.assert_array_equal(_generic_kernel_normals(d, k, k_size).numpy(), want.numpy())
+
+
+def test_wide_k_no_worse_than_jax_against_f64_oracle(rng):
+    """k = 89, a window larger than the 16 x 64 map: the port's
+    depth->normal (the plain version on the CPU) against
+    ``cnmnet_tpu.ops.normals.depth_to_normal`` by the f64-oracle rule. The
+    JAX package's Pallas kernel takes k <= 17 only (its 8-row halo), so
+    its jnp op is what it runs at this k."""
+    depth, K_inv = _inputs(rng)
+    truth, det = oracle_f64(depth, K_inv, 89)
+    want_n, want_p = jn.depth_to_normal(jnp.asarray(depth), jnp.asarray(K_inv), 89)
+    got_n, got_p = kn.depth_to_normal(torch.from_numpy(depth), torch.from_numpy(K_inv), 89)
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), atol=1e-5)
+    no_worse(got_n.numpy(), np.asarray(want_n), truth, det)
+
+
+def test_batch_chunks_cover_the_batch(monkeypatch):
+    assert kn.batch_chunks(8) == [(0, 8)]
+    assert kn.batch_chunks(65_536) == [(0, 65_535), (65_535, 65_536)]
+    monkeypatch.setattr(kn, "MAX_BATCH", 3)
+    assert kn.batch_chunks(8) == [(0, 3), (3, 6), (6, 8)]
+    assert kn.batch_chunks(3) == [(0, 3)] and kn.batch_chunks(0) == []
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that passes the wrapper's ``is_cuda`` check, so that its
+    launch loop runs here against a stand-in library."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_kernel_launches_batch_chunks_into_one_output(rng, monkeypatch):
+    """``depth_to_normal_kernel`` with the batch limit lowered to 3 and its
+    library stood in by the plain version: 8 maps in launches of 3, 3 and
+    2 maps, each at its slice of the depth, K^-1 and the one output, equal
+    to the plain normals of the whole batch; the counter adds one a
+    launch."""
+    import contextlib
+    import types
+
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(kn, "MAX_BATCH", 3)
+    depth, K_inv = _inputs(rng, B=8, H=9, W=12, focal=0.9 * 12)
+    d = torch.from_numpy(depth).as_subclass(_OnCard)
+    ki = torch.from_numpy(K_inv).as_subclass(_OnCard)
+    plain_d, plain_ki = d.as_subclass(torch.Tensor), ki.as_subclass(torch.Tensor)
+    calls = []
+
+    def launch(d_p, k_p, out_p, B, H, W, k_size, row_offset, vmin, vmax, det_eps, norm_eps, stream):
+        b0 = (d_p - d.data_ptr()) // (H * W * 4)
+        assert k_p == ki[b0].data_ptr() and row_offset == 2
+        calls.append((b0, b0 + B))
+        n = tn.depth_to_normal(plain_d[b0:b0 + B], plain_ki[b0:b0 + B], k_size,
+                               row_offset=row_offset)[0].reshape(-1)
+        torch.frombuffer((ctypes.c_float * n.numel()).from_address(out_p),
+                         dtype=torch.float32).copy_(n)
+        return 0
+
+    monkeypatch.setattr(kn.build, "load", lambda name: types.SimpleNamespace(cnm_depth_to_normal=launch))
+    before = kn.depth_to_normal_kernel.launches
+    got = kn.depth_to_normal_kernel(d, ki, 5, row_offset=2)
+    assert calls == [(0, 3), (3, 6), (6, 8)] and kn.depth_to_normal_kernel.launches - before == 3
+    want, _ = tn.depth_to_normal(plain_d, plain_ki, 5, row_offset=2)
+    assert torch.equal(got.as_subclass(torch.Tensor), want)
 
 
 # -- gradients -----------------------------------------------------------------
