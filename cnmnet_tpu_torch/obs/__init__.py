@@ -1,5 +1,5 @@
 from cnmnet_tpu_torch.obs.logger import MetricLogger
-from cnmnet_tpu_torch.obs.meters import AverageMeter, StepTimer
+from cnmnet_tpu_torch.obs.meters import AverageMeter
 from cnmnet_tpu_torch.obs.colorize import (
     colorize_depth,
     colorize_idepth,
@@ -10,7 +10,6 @@ from cnmnet_tpu_torch.obs.colorize import (
 __all__ = [
     "MetricLogger",
     "AverageMeter",
-    "StepTimer",
     "colorize_depth",
     "colorize_idepth",
     "colorize_prob",

@@ -39,6 +39,19 @@ of ``models/layers.init_weights``.
 single-frame ``submit``s into batches on one thread, double-buffered: it
 dispatches batch N+1 before it fetches batch N.
 
+With the span recorder on (``obs/spans``) the serving path records, by
+layer boundary: ``serve.batcher.queue`` (each request, submit -> the batch
+that takes it; the request's id), ``serve.batcher.collect``,
+``serve.batcher.dispatch`` (the batch's request ids) holding one
+``serve.session.dispatch`` a chunk (bucket, real frames) tiled by
+``serve.session.stage`` (pad, pin, the uploads' enqueue),
+``serve.session.forward`` (the forward's launches) and
+``serve.session.wire`` (the wire's copy and event), then
+``serve.session.fetch`` (``serve.session.device_wait``,
+``serve.session.unpack``) and ``serve.batcher.deliver``. Whether it is on
+or off, a session counts ``frames_real`` (the requests' frames) and
+``frames_run`` (the buckets' frames, padding included).
+
 ``InferenceSession(mesh=)`` serves on a ``parallel/mesh.Mesh`` of ranks,
 one process a card, every rank building the session with the same
 arguments: buckets round up to a multiple of the data axis, as in JAX.
@@ -96,6 +109,7 @@ from cnmnet_tpu_torch.kernels import dispatch
 from cnmnet_tpu_torch.models.cnm import CNMModel, cast_for_compute
 from cnmnet_tpu_torch.models.layers import init_weights
 from cnmnet_tpu_torch.models.transplant import load_flax_variables
+from cnmnet_tpu_torch.obs import spans
 from cnmnet_tpu_torch.ops.images import prepare_images
 from cnmnet_tpu_torch.parallel import collectives
 from cnmnet_tpu_torch.parallel.mesh import Mesh
@@ -213,6 +227,10 @@ class InferenceSession:
         self.k_size = k_size or self.cfg.model.k_size
 
         self._lock = threading.Lock()
+        # frames of the requests dispatched, and of the buckets they ran in
+        # (padding included); rank 0 counts on a mesh
+        self.frames_real = 0
+        self.frames_run = 0
 
         from cnmnet_tpu_torch.train.state import build_model
 
@@ -269,23 +287,33 @@ class InferenceSession:
         upload, forward, and the wire's copy to the host, without waiting."""
         B, V = images.shape[:2]
         bucket = _next_bucket(B, self.buckets)
-        if B < bucket:
-            images = np.concatenate([images] + [images[-1:]] * (bucket - B), 0)
-            cams = np.concatenate([cams] + [cams[-1:]] * (bucket - B), 0)
-        layout = self._layout(V)
-        img = torch.from_numpy(np.ascontiguousarray(images))
-        cam = torch.from_numpy(np.ascontiguousarray(cams))
-        if self.mesh is not None:
-            return Handle(self._lead(img, cam).cpu(), None, layout, B)
-        if self.device.type != "cuda":
-            return Handle(self._forward(img, cam, layout), None, layout, B)
-        img = img.pin_memory().to(self.device, non_blocking=True)
-        cam = cam.pin_memory().to(self.device, non_blocking=True)
-        packed = self._forward(img, cam, layout)
-        wire = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        wire.copy_(packed, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
+        with spans.span("serve.session.dispatch", bucket=bucket, frames=B):
+            with spans.span("serve.session.stage"):
+                if B < bucket:
+                    images = np.concatenate([images] + [images[-1:]] * (bucket - B), 0)
+                    cams = np.concatenate([cams] + [cams[-1:]] * (bucket - B), 0)
+                layout = self._layout(V)
+                img = torch.from_numpy(np.ascontiguousarray(images))
+                cam = torch.from_numpy(np.ascontiguousarray(cams))
+                cuda = self.mesh is None and self.device.type == "cuda"
+                if cuda:
+                    img = img.pin_memory().to(self.device, non_blocking=True)
+                    cam = cam.pin_memory().to(self.device, non_blocking=True)
+            with spans.span("serve.session.forward"):
+                if self.mesh is not None:
+                    packed = self._lead(img, cam).cpu()
+                else:
+                    packed = self._forward(img, cam, layout)
+            if cuda:
+                with spans.span("serve.session.wire"):
+                    wire = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+                    wire.copy_(packed, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
+            else:
+                wire, done = packed, None
+        self.frames_real += B
+        self.frames_run += bucket
         return Handle(wire, done, layout, B)
 
     # -- serving on a mesh -------------------------------------------------
@@ -348,15 +376,18 @@ class InferenceSession:
 
     def fetch(self, handle: Handle) -> Dict[str, np.ndarray]:
         """Wait for a dispatched batch and unpack its wire."""
-        if handle.done is not None:
-            handle.done.synchronize()
-        arr = handle.wire
-        arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
-        out, c = {}, 0
-        for name, nc in handle.layout:
-            a = arr[: handle.frames, ..., c : c + nc]
-            c += nc
-            out[name] = (a[..., 0] if nc == 1 else a).astype(np.float32)
+        with spans.span("serve.session.fetch"):
+            with spans.span("serve.session.device_wait"):
+                if handle.done is not None:
+                    handle.done.synchronize()
+            with spans.span("serve.session.unpack"):
+                arr = handle.wire
+                arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
+                out, c = {}, 0
+                for name, nc in handle.layout:
+                    a = arr[: handle.frames, ..., c : c + nc]
+                    c += nc
+                    out[name] = (a[..., 0] if nc == 1 else a).astype(np.float32)
         return out
 
     def _check_leader(self):
@@ -402,6 +433,8 @@ class _Request(NamedTuple):
     images: np.ndarray  # [V, H, W, 3]
     cams: np.ndarray  # [V, 2, 4, 4] f32
     future: Future
+    rid: int = 0  # with the span recorder on: the request's span id and
+    submitted: int = 0  # its submit stamp (perf_counter_ns)
 
     @property
     def signature(self):
@@ -460,7 +493,10 @@ class MicroBatcher:
         except (ValueError, TypeError) as e:
             fut.set_exception(e)
             return fut
-        self._q.put(_Request(images, cams, fut))
+        if spans.enabled():
+            self._q.put(_Request(images, cams, fut, spans.new_id(), time.perf_counter_ns()))
+        else:
+            self._q.put(_Request(images, cams, fut))
         return fut
 
     def close(self, timeout: float = 60.0) -> None:
@@ -479,46 +515,54 @@ class MicroBatcher:
         dropped; the others are marked running, so they can no longer be."""
         batch: List[_Request] = []
         deadline = None
-        while len(batch) < self.max_batch:
-            left = 0.0 if deadline is None else deadline - time.monotonic()
-            try:
-                if not batch and block:
-                    item = self._q.get()
-                    deadline = time.monotonic() + self.max_wait
-                elif left > 0:
-                    item = self._q.get(timeout=left)
-                else:
-                    item = self._q.get_nowait()
-            except queue.Empty:
-                break
-            if item is None:
-                self._stop.set()
-                break
-            if item.future.set_running_or_notify_cancel():
-                batch.append(item)
+        with spans.span("serve.batcher.collect"):
+            while len(batch) < self.max_batch:
+                left = 0.0 if deadline is None else deadline - time.monotonic()
+                try:
+                    if not batch and block:
+                        item = self._q.get()
+                        deadline = time.monotonic() + self.max_wait
+                    elif left > 0:
+                        item = self._q.get(timeout=left)
+                    else:
+                        item = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                if item is None:
+                    self._stop.set()
+                    break
+                if item.future.set_running_or_notify_cancel():
+                    batch.append(item)
+        now = time.perf_counter_ns()
+        for r in batch:
+            if r.rid:
+                spans.record("serve.batcher.queue", r.submitted, now, span_id=r.rid)
         return batch
 
     def _dispatch(self, batch: List[_Request]):
         """``predict_async`` per signature and top-bucket chunk -> ``[(chunk,
         handle)]``; a chunk whose dispatch raises fails its own futures."""
+        if not batch:
+            return []
         groups: Dict[tuple, List[_Request]] = {}
         for r in batch:
             groups.setdefault(r.signature, []).append(r)
         top = self.session.buckets[-1]
         out = []
-        for reqs in groups.values():
-            for i in range(0, len(reqs), top):
-                chunk = reqs[i : i + top]
-                try:
-                    handle = self.session.predict_async(
-                        np.stack([r.images for r in chunk]), np.stack([r.cams for r in chunk]))
-                except Exception as e:  # this chunk's waiters get it; serving goes on
-                    for r in chunk:
-                        r.future.set_exception(e)
-                    continue
-                self.dispatched += 1
-                self.served += len(chunk)
-                out.append((chunk, handle))
+        with spans.span("serve.batcher.dispatch", requests=[r.rid for r in batch]):
+            for reqs in groups.values():
+                for i in range(0, len(reqs), top):
+                    chunk = reqs[i : i + top]
+                    try:
+                        handle = self.session.predict_async(
+                            np.stack([r.images for r in chunk]), np.stack([r.cams for r in chunk]))
+                    except Exception as e:  # this chunk's waiters get it; serving goes on
+                        for r in chunk:
+                            r.future.set_exception(e)
+                        continue
+                    self.dispatched += 1
+                    self.served += len(chunk)
+                    out.append((chunk, handle))
         return out
 
     def _resolve(self, chunk: List[_Request], handle: Handle) -> None:
@@ -528,8 +572,9 @@ class MicroBatcher:
             for r in chunk:
                 r.future.set_exception(e)
             return
-        for i, r in enumerate(chunk):
-            r.future.set_result({k: v[i] for k, v in out.items()})
+        with spans.span("serve.batcher.deliver", requests=[r.rid for r in chunk]):
+            for i, r in enumerate(chunk):
+                r.future.set_result({k: v[i] for k, v in out.items()})
 
     def _loop(self):
         pending = []

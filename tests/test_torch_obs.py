@@ -7,10 +7,10 @@ nothing is compiled).
   PIL, the port with ``data/imageio.write_png``); only rank 0 writes.
 * ``tb_export``: the two converters write byte-equal files for the same
   run directory at the same wall clock.
-* ``AverageMeter`` and ``StepTimer`` average as JAX's do, and the timer
-  synchronises the CUDA device of a result (never for a CPU tensor).
+* ``AverageMeter`` averages as JAX's does, and ``synchronize`` waits for
+  the CUDA device of a result (never for a CPU tensor).
 * ``forward_slope_seconds`` chains each call on the previous output and
-  takes the median slope; ``profile_trace`` writes a Chrome trace.
+  takes the median slope.
 """
 
 import json
@@ -27,7 +27,7 @@ from cnmnet_tpu.obs import logger as jlogger  # noqa: E402
 from cnmnet_tpu.obs import meters as jmeters  # noqa: E402
 from cnmnet_tpu.obs import tb_export as jtb  # noqa: E402
 from cnmnet_tpu_torch.data.imageio import read_png  # noqa: E402
-from cnmnet_tpu_torch.obs import AverageMeter, MetricLogger, StepTimer  # noqa: E402
+from cnmnet_tpu_torch.obs import AverageMeter, MetricLogger  # noqa: E402
 from cnmnet_tpu_torch.obs import logger as tlogger  # noqa: E402
 from cnmnet_tpu_torch.obs import meters as tmeters  # noqa: E402
 from cnmnet_tpu_torch.obs import tb_export as ttb  # noqa: E402
@@ -138,18 +138,14 @@ class _OnCard(torch.Tensor):
         return True
 
 
-def test_step_timer_synchronises_the_result_device(monkeypatch):
+def test_synchronize_waits_for_the_result_device(monkeypatch):
     synced = []
     monkeypatch.setattr(tmeters.torch.cuda, "synchronize", lambda device=None: synced.append(device))
-    timer = StepTimer()
-    out = timer.timed(lambda x: x * 2, torch.ones(3))
-    assert torch.equal(out, torch.full((3,), 2.0)) and synced == []  # CPU: no sync
+    tmeters.synchronize(torch.ones(3))
+    assert synced == []  # CPU: no sync
     card = torch.ones(2).as_subclass(_OnCard)
-    timer.timed(lambda: {"a": card, "b": (torch.ones(1), card)})
+    tmeters.synchronize({"a": card, "b": (torch.ones(1), [card])})
     assert synced == [card.device, card.device]
-    with timer.measure(card):
-        pass
-    assert len(synced) == 3 and timer.meter.count == 3 and timer.mean >= 0.0
 
 
 def test_forward_slope_chains_calls():
@@ -164,10 +160,3 @@ def test_forward_slope_chains_calls():
     assert np.isfinite(t) and len(seen) == 2 + 3 * (2 + 4)
     # within one chain every call after the first takes the previous call's mix
     assert seen[0] is images and seen[1] is not images and seen[2] is images
-
-
-def test_profile_trace_writes_a_chrome_trace(tmp_path):
-    with tmeters.profile_trace(str(tmp_path / "trace")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert trace["traceEvents"]
