@@ -9,9 +9,9 @@ source, in parallel), then:
    name and power limit) and turns TF32 off for the f32 checks;
 2. holds each kernel against its plain PyTorch version on the card, asking
    for exact agreement (max abs error 0): the cost volume at the serving
-   shapes (2, 8 and 16 pairs, 192x256, 64 planes) in f32 and bf16, at
-   (30, 100, 6), (40, 130, 9), an odd width (3 pairs, 31, 97, 5) and
-   480x640x64, and under coefficients that
+   shapes (2, 8, 16 and, at seven views, 48 pairs, 192x256, 64 planes) in
+   f32 and bf16, at (30, 100, 6), (40, 130, 9), an odd width (3 pairs, 31,
+   97, 5) and 480x640x64, and under coefficients that
    put taps at and beyond every edge of the source and past the coordinate
    clip; depth->normal at B in {1, 4, 8} x k in {5, 9} at 192x256, at 480x640
    and at an odd size, also judged against the plain version in f64; the
@@ -26,10 +26,13 @@ source, in parallel), then:
    synthetic frames) through ``InferenceSession.predict`` on
    requests of batch 1 (uint8), 3 (f32, padded to bucket 4) and 8, and on an
    f16 wire, with both kernels' launch counters set to 0 just before and
-   read just after; checks shapes, ranges, unit normals, the bf16 session
-   against an f32 one, the f32 kernel session against an f32 session of
-   plain versions, and that every norm layer of the bf16 session keeps f32
-   parameters and statistics;
+   read just after, and on uint8 seven-view requests (six sources, 48
+   pairs a bucket of 8) of batch 1, 3 (padded to 4) and 8: every dispatch
+   one CUDA graph replay equal to the eager nets bit for bit, with one
+   launch of each kernel; checks shapes, ranges, unit normals, the bf16
+   session against an f32 one, the f32 kernel session against an f32
+   session of plain versions, and that every norm layer of the bf16 session
+   keeps f32 parameters and statistics;
 4. times each kernel at the shapes of buckets 1 and 8 (cost volume: 2 and
    16 pairs; depth->normal: B = 1 and 8) beside its bound, and its plain
    version at bucket 1 (CUDA events, median of 20 runs after warm-up), and
@@ -605,6 +608,8 @@ def serve_phase(torch, counters):
     u8 = quantize_images_u8(batch["images"])
     f32 = normalize_images(u8.astype(np.float32) / 255.0)
     cams = batch["cams"].astype(np.float32)
+    batch7 = synthetic_batch(8, H, W, 7, seed=13)  # six sources a frame
+    u8_7, cams7 = quantize_images_u8(batch7["images"]), batch7["cams"].astype(np.float32)
     cfg = Config()  # 64 planes, k = 9, 192x256
 
     # seeded weights, BatchNorm statistics from other frames of the same kind
@@ -629,25 +634,28 @@ def serve_phase(torch, counters):
         "b8_u8": session.predict(u8, cams),
         "b1_f16": wire16.predict(u8[:1], cams[:1]),
     }
+    seven = {f"b{B}_u8_7v": (u8_7[:B], cams7[:B]) for B in (1, 3, 8)}
+    outs.update({key: session.predict(*req) for key, req in seven.items()})
     launches = {name: c.launches for name, c in counters.items()}
-    print(f"launches during predict (4 requests): {launches}")
+    print(f"launches during predict ({len(outs)} requests): {launches}")
     for name, n in launches.items():
         assert n == len(outs), f"kernel {name}: {n} launches for {len(outs)} dispatches"
 
-    # the nets replay as CUDA graphs, one a bucket and signature (bucket 1 and
-    # 8 uint8, bucket 4 float32; the first predict captured bucket 1), one
-    # replay a dispatch; the same session with its graphs off agrees bit for bit
+    # the nets replay as CUDA graphs, one a bucket and signature (three views:
+    # bucket 1 and 8 uint8, bucket 4 float32, the first predict capturing
+    # bucket 1; seven views: buckets 1, 4 and 8 uint8), one replay a dispatch;
+    # the same session with its graphs off agrees bit for bit
     graphs = (session.graph_captures, session.graph_replays)
-    assert graphs == (3, 4), graphs
+    assert graphs == (6, 7), graphs
     eager = InferenceSession(cfg, state_dict=weights, device="cuda")
     eager._graphs = None  # the nets eagerly, as the CPU and a mesh run them
     for key, (imgs, cm) in {"b1_u8": (u8[:1], cams[:1]), "b3_f32": (f32[:3], cams[:3]),
-                            "b8_u8": (u8, cams)}.items():
+                            "b8_u8": (u8, cams), **seven}.items():
         want = eager.predict(imgs, cm)
         differ = [k for k in want if not np.array_equal(outs[key][k], want[k])]
         assert not differ, f"{key}: the replayed nets differ from the eager ones in {differ}"
     print(f"CUDA graphs: {graphs[0]} captures, {graphs[1]} replays; the replays equal the "
-          f"eager nets bit for bit at buckets 1, 4 and 8")
+          f"eager nets bit for bit at buckets 1, 4 and 8, at three and at seven views")
     del eager
 
     for key, out in outs.items():
@@ -3540,6 +3548,7 @@ def main() -> int:
     check_cost_volume(torch, H, W, P, 8, 0, batch4)  # bucket 4: 8 pairs
     batch8 = synthetic_batch(8, H, W, 3, seed=6)
     check_cost_volume(torch, H, W, P, 16, 0, batch8)  # bucket 8: 16 pairs
+    check_cost_volume(torch, H, W, P, 48, 0, synthetic_batch(8, H, W, 7, seed=8))  # 7 views: 48
     check_cost_volume_edges(torch, 4)
     nrm_err = None
     for B in (1, 4, 8):  # the serving buckets' depth maps

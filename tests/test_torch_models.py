@@ -172,6 +172,7 @@ class TestLayers:
 CASES = {
     "3view": dict(V=3),
     "5view": dict(V=5),
+    "7view": dict(V=7),
     "2view": dict(V=2),
     "no_refiner": dict(V=3, use_refiner=False),
     "group_norm": dict(V=3, norm="group"),

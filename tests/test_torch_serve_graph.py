@@ -9,9 +9,9 @@ gives; ``serve.graph_key`` tells every part of a batch's signature apart.
 On the card (marked ``card``, skipped without one; this file imports no
 JAX, so the card's machine runs it: ``python -m pytest
 tests/test_torch_serve_graph.py --noconftest``): the replayed nets against
-the eager ones, both hand kernels launching on every dispatch, a replay for
-every dispatch after ``warmup``, and the profiler seeing the kernels inside
-the graph.
+the eager ones at two, three and seven views, both hand kernels launching
+on every dispatch, a replay for every dispatch after ``warmup``, and the
+profiler seeing the kernels inside the graph.
 """
 
 import numpy as np
@@ -56,7 +56,7 @@ def _small_cfg():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("views", [2, 3, 5])
+@pytest.mark.parametrize("views", [2, 3, 5, 7])
 def test_front_then_nets_on_static_buffers_equal_forward(views, dtype):
     """The session's graph path on the CPU: the first batch's front output
     cloned into static buffers, a second batch's volume written into the
@@ -163,10 +163,12 @@ def card_sessions():
 
 
 def _signatures(h, w):
-    """uint8 three-view frames and float32 two-view ones: two graphs a bucket."""
+    """uint8 three-view frames, float32 two-view ones and uint8 seven-view
+    ones (six pairs a frame, 48 a bucket of 8): three graphs a bucket."""
     u8, cams = _frames(8, 3, h, w, seed=11)
     f32 = normalize_images(u8[:, :2].astype(np.float32) / 255.0)
-    return {"u8-3v": (u8, cams), "f32-2v": (f32, np.ascontiguousarray(cams[:, :2]))}
+    return {"u8-3v": (u8, cams), "f32-2v": (f32, np.ascontiguousarray(cams[:, :2])),
+            "u8-7v": _frames(8, 7, h, w, seed=13)}
 
 
 @pytest.mark.card
