@@ -647,6 +647,7 @@ def serve_phase(torch, counters):
     # the same session with its graphs off agrees bit for bit
     graphs = (session.graph_captures, session.graph_replays)
     assert graphs == (6, 7), graphs
+    assert session.channels_last_dispatches == graphs[1], session.channels_last_dispatches
     eager = InferenceSession(cfg, state_dict=weights, device="cuda")
     eager._graphs = None  # the nets eagerly, as the CPU and a mesh run them
     for key, (imgs, cm) in {"b1_u8": (u8[:1], cams[:1]), "b3_f32": (f32[:3], cams[:3]),

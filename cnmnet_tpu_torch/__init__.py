@@ -12,7 +12,8 @@ against it by the tests in ``tests/test_torch_*.py``:
   ``ops/`` and serves CPU tensors;
 * public inputs and outputs keep the JAX package's layouts (images
   ``[B, V, H, W, 3]``, cams ``[B, V, 2, 4, 4]``, NHWC outputs), while the
-  convolutions run NCHW inside.
+  convolutions run NCHW inside, or channels-last in a serving session on
+  one card (``serve.InferenceSession``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -9,8 +9,10 @@ Counterpart of ``cnmnet_tpu/models/cnm.py``, covering the same protocols:
   into hypothesis 1 and odd-index sources into hypothesis 2, then refined.
 
 Inputs and outputs keep the JAX package's layouts (images ``[B, V, H, W,
-3]``, cams ``[B, V, 2, 4, 4]``, NHWC outputs); the convolutions run NCHW
-and the outputs are NHWC views of their results. The module computes in
+3]``, cams ``[B, V, 2, 4, 4]``, NHWC outputs); the convolutions run in the
+memory layout of ``nets``' inputs (``front`` gives NCHW; channels-last
+inputs and weights keep every map channels-last, ``models/layers.py``) and
+the outputs are NHWC views of their results. The module computes in
 its ``compute_dtype`` when one is set (``layers.set_compute_dtype``: bf16
 training, f32 parameters, each conv casting at use), else in the dtype of
 its conv weights (``cast_for_compute(model, torch.bfloat16)``, bf16
@@ -39,6 +41,7 @@ from torch import nn
 from cnmnet_tpu_torch.geometry.camera import camera_from_array
 from cnmnet_tpu_torch.kernels import dispatch
 from cnmnet_tpu_torch.models.depthnet import DepthNet
+from cnmnet_tpu_torch.models.layers import is_channels_last
 from cnmnet_tpu_torch.models.refinenet import DepthRefineNet
 from cnmnet_tpu_torch.parallel.tiled_ops import cost_volume_tiled
 
@@ -60,6 +63,16 @@ class CNMOutputs(NamedTuple):
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def _group_mean(x: torch.Tensor, B: int, S: int, first: int) -> torch.Tensor:
+    """The mean of each sample's sources ``first``, ``first + 2``, ... of
+    ``x`` ``[B*S, C, H, W]``, in ``x``'s layout: a channels-last ``x`` is
+    averaged through its NHWC view (a mean's output is laid out NCHW)."""
+    if is_channels_last(x):
+        y = _nhwc(x)
+        return y.reshape(B, S, *y.shape[1:])[:, first::2].mean(1).permute(0, 3, 1, 2)
+    return x.reshape(B, S, *x.shape[1:])[:, first::2].mean(1)
 
 
 def cast_for_compute(model: nn.Module, dtype: torch.dtype, device=None) -> nn.Module:
@@ -154,10 +167,8 @@ class CNMModel(nn.Module):
             return CNMOutputs(disps_unfold, iconv_unfold, None, None, None, None)
 
         # Group-average: even-index sources -> hypothesis 1, odd -> hypothesis 2.
-        d1 = disps[0].reshape(B, S, 1, H, W)
-        ic = iconv.reshape(B, S, iconv.shape[1], H, W)
-        g1, g2 = d1[:, 0::2].mean(1), d1[:, 1::2].mean(1)
-        c1, c2 = ic[:, 0::2].mean(1), ic[:, 1::2].mean(1)
+        g1, g2 = (_group_mean(disps[0], B, S, first) for first in (0, 1))
+        c1, c2 = (_group_mean(iconv, B, S, first) for first in (0, 1))
         idepth_refined, prob_map = self.refine_net(g1, g2, c1, c2)
         return CNMOutputs(
             disps_unfold, iconv_unfold, _nhwc(g1), _nhwc(g2),

@@ -1,7 +1,8 @@
 """DepthNet: plane-sweep hourglass regressing multi-scale inverse depth.
 
-Counterpart of ``cnmnet_tpu/models/depthnet.py``, NCHW, with the
-reference's submodule names:
+Counterpart of ``cnmnet_tpu/models/depthnet.py``, NCHW or channels-last
+(the layout of its input, ``models/layers.py``), with the reference's
+submodule names:
 
 * input: cat(ref RGB, P-plane cost volume) = 3 + P channels;
 * encoder ``conv1..conv5``: stride-2 double convs 128, 256, 512, 512, 512
@@ -30,6 +31,7 @@ from cnmnet_tpu_torch.models.layers import (
     DispHead,
     DownConvBlock,
     UpConvBlock,
+    like_layout,
     remat,
     upsample2x_nearest,
 )
@@ -79,15 +81,15 @@ class DepthNet(nn.Module):
         iconv4 = self.iconv4(torch.cat([self.upconv4(iconv5), conv3], 1))
         disp4 = self.disp4(iconv4)
 
-        udisp4 = upsample2x_nearest(disp4, self.spatial).to(dt)
+        udisp4 = like_layout(upsample2x_nearest(disp4, self.spatial).to(dt), conv2)
         iconv3 = self.iconv3(torch.cat([self.upconv3(iconv4), conv2, udisp4], 1))
         disp3 = self.disp3(iconv3)
 
-        udisp3 = upsample2x_nearest(disp3, self.spatial).to(dt)
+        udisp3 = like_layout(upsample2x_nearest(disp3, self.spatial).to(dt), conv1)
         iconv2 = self.iconv2(torch.cat([self.upconv2(iconv3), conv1, udisp3], 1))
         disp2 = self.disp2(iconv2)
 
-        udisp2 = upsample2x_nearest(disp2, self.spatial).to(dt)
+        udisp2 = like_layout(upsample2x_nearest(disp2, self.spatial).to(dt), iconv2)
         iconv1 = self.iconv1(torch.cat([self.upconv1(iconv2), udisp2], 1))
         disp1 = self.disp1(iconv1)
         return [disp1, disp2, disp3, disp4], iconv1

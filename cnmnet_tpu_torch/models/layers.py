@@ -1,4 +1,5 @@
-"""Shared conv building blocks (``cnmnet_tpu/models/layers.py``), NCHW.
+"""Shared conv building blocks (``cnmnet_tpu/models/layers.py``), NCHW or
+channels-last.
 
 The blocks are ``nn.Sequential``s laid out as the reference's torch
 ``Sequential``s, so their ``state_dict`` keys are the reference's own
@@ -17,6 +18,14 @@ A conv over a concatenation is ``torch.cat`` + one conv, whose weight
 covers the inputs' channels in order (the JAX package's ``MultiInConv``
 splits it only for TPU lane alignment). Convolution weights start He-normal
 with fan-out, drawn from the caller's ``torch.Generator``.
+
+The blocks keep the memory layout their input arrives in: NCHW, or
+channels-last (NHWC strides) with the conv weights converted once
+(``model.to(memory_format=torch.channels_last)``, as a CUDA serving session
+does), where cuDNN's convolutions and the upsamplings run NHWC kernels and
+nothing is transposed. ``torch.cat`` falls back to NCHW when one input is
+not channels-last by its strides, as a 1-channel map made NCHW is, so such
+an input goes through ``like_layout`` first.
 
 Training in bf16 (``set_compute_dtype``) is flax's ``dtype=bfloat16``: each
 ``Conv2d`` casts its input, weight and bias to bf16 at use, so the
@@ -132,6 +141,25 @@ def set_compute_dtype(model: nn.Module, dtype) -> nn.Module:
     return model
 
 
+def is_channels_last(x: torch.Tensor) -> bool:
+    """Whether ``x`` ``[B, C, H, W]`` has NHWC strides, as ``torch.cat`` reads
+    them: a 1-channel map only with the channels-last strides (it is dense
+    in either layout)."""
+    return x.dim() == 4 and x.stride(1) == 1 and x.is_contiguous(memory_format=torch.channels_last)
+
+
+def _memory_format(x: torch.Tensor) -> torch.memory_format:
+    return torch.channels_last if is_channels_last(x) else torch.contiguous_format
+
+
+def like_layout(x: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``other``'s memory layout (NCHW or channels-last): ``x``
+    itself where the two agree, else a copy."""
+    if is_channels_last(x) == is_channels_last(other):
+        return x
+    return torch.empty_like(x, memory_format=_memory_format(other)).copy_(x)
+
+
 def _f32_or_wider(x: torch.Tensor) -> torch.Tensor:
     """``x`` in f32, or in its own dtype where that is wider (f64)."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
@@ -142,7 +170,8 @@ class GroupNormF32(nn.GroupNorm):
     flax's GroupNorm does under bf16 compute (f32 statistics and params).
     PyTorch's BatchNorm normalises a bf16 input with f32 params in f32 by
     itself, but its CUDA GroupNorm refuses them ("expected scalar type
-    BFloat16 but found Float"), so the input is cast up here. With
+    BFloat16 but found Float"), so the input is cast up here; the output
+    takes the input's layout (the CUDA GroupNorm returns NCHW). With
     ``spatial`` set, each sample's statistics are summed over the tile
     group (``group_norm_partials``, ``group_norm_apply``)."""
 
@@ -152,8 +181,8 @@ class GroupNormF32(nn.GroupNorm):
         if self.spatial is not None:
             sums = self.spatial.tile_sum(group_norm_partials(x, self.num_groups))
             return group_norm_apply(x, sums, self.weight, self.bias, self.eps)
-        return F.group_norm(_f32_or_wider(x), self.num_groups, self.weight, self.bias,
-                            self.eps).to(x.dtype)
+        y = F.group_norm(_f32_or_wider(x), self.num_groups, self.weight, self.bias, self.eps)
+        return y.to(x.dtype, memory_format=_memory_format(x))
 
 
 def group_norm_partials(x: torch.Tensor, groups: int) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """DepthRefineNet: occlusion-aware fusion of two inverse-depth hypotheses.
 
-Counterpart of ``cnmnet_tpu/models/refinenet.py``, NCHW, with the
+Counterpart of ``cnmnet_tpu/models/refinenet.py``, NCHW or channels-last
+(the layout of ``iconv01``, ``models/layers.py``), with the
 reference's flat submodule names (``conv1..3``,
 ``{upconv,iconv}{3,2,1}_{depth,prob}``, ``disp_refine``, ``prob``):
 
@@ -28,6 +29,7 @@ from cnmnet_tpu_torch.models.layers import (
     DispHead,
     DownConvBlock,
     UpConvBlock,
+    like_layout,
     remat,
 )
 
@@ -65,7 +67,8 @@ class DepthRefineNet(nn.Module):
         (refined inverse depth, occlusion probability), each ``[B, 1, H, W]`` f32."""
         dt = iconv01.dtype
         diff = (idepth01 - idepth02).abs()
-        x = torch.cat([idepth01.to(dt), idepth02.to(dt), diff.to(dt), iconv01 + iconv02], 1)
+        maps = [like_layout(m.to(dt), iconv01) for m in (idepth01, idepth02, diff)]
+        x = torch.cat([*maps, iconv01 + iconv02], 1)
         conv1 = self._run(self.conv1, x)
         conv2 = self._run(self.conv2, conv1)
         conv3 = self._run(self.conv3, conv2)

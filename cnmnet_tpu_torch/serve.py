@@ -34,6 +34,16 @@ share one memory pool: replays run one at a time on one stream. The CPU
 and a mesh run the same nets eagerly. ``graph_captures`` and
 ``graph_replays`` count them.
 
+On one CUDA device with no mesh the nets run channels-last, eagerly and in
+their graphs alike: the conv weights are converted once at build
+(``model.to(memory_format=torch.channels_last)``; the ``state_dict``'s
+keys and values are unchanged) and the front's reference and volume at the
+head of every pass, so cuDNN's convolutions and the upsamplings run their
+NHWC kernels with nothing transposed. Every other session (the CPU, a mesh)
+runs NCHW, as the trainer and the eval driver do.
+``channels_last_dispatches`` counts the dispatches whose nets ran
+channels-last.
+
 ``predict_async(images, cams) -> handle`` dispatches one batch no larger
 than the top bucket and returns without waiting: on CUDA the inputs go up
 from pinned host memory (``non_blocking``), the packed wire is copied into a
@@ -60,7 +70,8 @@ that takes it; the request's id), ``serve.batcher.collect``,
 ``serve.session.dispatch`` a chunk (bucket, real frames) tiled by
 ``serve.session.stage`` (pad, pin, the uploads' enqueue),
 ``serve.session.forward`` (the forward's launches; ``graph``: whether the
-nets were a graph's replay) and
+nets were a graph's replay; ``layout``: ``"channels_last"`` or ``"nchw"``)
+and
 ``serve.session.wire`` (the wire's copy and event), then
 ``serve.session.fetch`` (``serve.session.device_wait``,
 ``serve.session.unpack``) and ``serve.batcher.deliver``. Whether it is on
@@ -184,6 +195,12 @@ def _check_batch(images, cams):
     return images, cams
 
 
+def channels_last_nets(device: torch.device, mesh: Optional[Mesh]) -> bool:
+    """Whether a session on ``device`` (over ``mesh``, None for one process)
+    runs its nets channels-last: on one CUDA device with no mesh."""
+    return mesh is None and device.type == "cuda"
+
+
 def graph_key(images: torch.Tensor, layout, tf32: bool) -> tuple:
     """Which captured graph a bucket batch ``images`` ``[bucket, V, H, W, 3]``
     replays: its bucket, views, size and dtype, the wire's ``layout`` and
@@ -266,6 +283,8 @@ class InferenceSession:
         # the nets as CUDA graphs (one CUDA device, no mesh), by graph_key
         self.graph_captures = 0
         self.graph_replays = 0
+        self.channels_last = channels_last_nets(self.device, self.mesh)
+        self.channels_last_dispatches = 0
         self._graphs: Optional[Dict[tuple, _Graph]] = None
         if self.mesh is None and self.device.type == "cuda":
             self._graphs, self._pool = {}, torch.cuda.graph_pool_handle()
@@ -282,6 +301,8 @@ class InferenceSession:
         else:
             init_weights(model, torch.Generator().manual_seed(seed))
         self.model = cast_for_compute(model, self.compute_dtype, self.device).eval()
+        if self.channels_last:
+            self.model.to(memory_format=torch.channels_last)  # the 4-D tensors: conv weights
 
     def _layout(self, views: int):
         """``(name, channels)`` slices packed into the wire's last axis."""
@@ -295,7 +316,10 @@ class InferenceSession:
 
     def _nets(self, ref: torch.Tensor, volume: torch.Tensor, views: int):
         """``CNMModel.nets`` -> (idepth ``[B, H, W, 1]``, prob or None, depth
-        ``[B, H, W]``)."""
+        ``[B, H, W]``); a channels-last session's nets take their inputs
+        channels-last (the reference is already: a view of the images)."""
+        if self.channels_last:
+            ref, volume = (t.contiguous(memory_format=torch.channels_last) for t in (ref, volume))
         out = self.model.nets(ref, volume, views)
         if out.idepth_refined is not None:
             idepth, prob = out.idepth_refined, out.prob_map
@@ -345,6 +369,7 @@ class InferenceSession:
         else:
             with spatial_parallel(self.model, spatial):
                 idepth, prob, depth = self._nets(*self.model.front(x, cams), images.shape[1])
+        self.channels_last_dispatches += self.channels_last
         parts = {"idepth": idepth, "depth": depth[..., None], "prob": prob}
         if any(name == "normal" for name, _ in layout):
             K_inv = invert_intrinsics(cams[:, 0, 1, :3, :3])
@@ -377,7 +402,8 @@ class InferenceSession:
                 if cuda:
                     img = img.pin_memory().to(self.device, non_blocking=True)
                     cam = cam.pin_memory().to(self.device, non_blocking=True)
-            with spans.span("serve.session.forward", graph=self._graphs is not None):
+            with spans.span("serve.session.forward", graph=self._graphs is not None,
+                            layout="channels_last" if self.channels_last else "nchw"):
                 if self.mesh is not None:
                     packed = self._lead(img, cam).cpu()
                 else:

@@ -9,9 +9,11 @@ gives; ``serve.graph_key`` tells every part of a batch's signature apart.
 On the card (marked ``card``, skipped without one; this file imports no
 JAX, so the card's machine runs it: ``python -m pytest
 tests/test_torch_serve_graph.py --noconftest``): the replayed nets against
-the eager ones at two, three and seven views, both hand kernels launching
-on every dispatch, a replay for every dispatch after ``warmup``, and the
-profiler seeing the kernels inside the graph.
+the eager ones at two, three and seven views, both channels-last, both hand
+kernels launching on every dispatch, a replay for every dispatch after
+``warmup``, the profiler seeing the kernels inside the graph, and the
+channels-last nets leaving layout transposes and upsampling a small share
+of the card's time.
 """
 
 import numpy as np
@@ -149,7 +151,8 @@ def test_graph_key_separates_each_part_of_a_signature(changed):
 @pytest.fixture(scope="module")
 def card_sessions():
     """A graph session and an eager one (its graphs switched off) with the
-    same seeded weights, at the configuration's size, both warmed."""
+    same seeded weights, at the configuration's size, both warmed; both run
+    the nets channels-last (one card, no mesh)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: CUDA graphs capture and replay only there")
     cfg = Config()  # 64 planes, k = 9, 192x256, bf16 serving
@@ -175,19 +178,24 @@ def _signatures(h, w):
 @pytest.mark.parametrize("frames", [1, 3, 6, 8], ids=["b1", "b4-pad", "b8-pad", "b8"])
 def test_replay_equals_the_eager_nets(card_sessions, frames):
     """Every output of the replayed nets equals the eager session's bit for
-    bit: the same kernels on the same inputs, in one order on one stream."""
+    bit: the same kernels on the same inputs, in one order on one stream,
+    channels-last in both."""
     from cnmnet_tpu_torch.kernels import cost_volume as kcv
     from cnmnet_tpu_torch.kernels import normals as kn
 
     graphed, eager, h, w = card_sessions
+    assert graphed.channels_last and eager.channels_last
     for name, (images, cams) in _signatures(h, w).items():
         replays, captures = graphed.graph_replays, graphed.graph_captures
+        last = graphed.channels_last_dispatches, eager.channels_last_dispatches
         cv, d2n = kcv.cost_volume_kernel.launches, kn.depth_to_normal_kernel.launches
         got = graphed.predict(images[:frames], cams[:frames])
         assert kcv.cost_volume_kernel.launches - cv == 1, name
         assert kn.depth_to_normal_kernel.launches - d2n == 1, name
         assert graphed.graph_replays - replays == 1, name
         want = eager.predict(images[:frames], cams[:frames])
+        assert (graphed.channels_last_dispatches - last[0],
+                eager.channels_last_dispatches - last[1]) == (1, 1), name
         assert graphed.graph_captures - captures <= 1, name  # a new signature's first batch
         assert set(got) == set(want), name
         for k in want:
@@ -197,16 +205,19 @@ def test_replay_equals_the_eager_nets(card_sessions, frames):
 @pytest.mark.card
 def test_warmup_captures_and_every_dispatch_replays(card_sessions):
     """After ``warmup`` of a signature, its batches capture nothing and each
-    dispatch is one replay, through the batcher's ``predict_async``."""
+    dispatch is one replay of channels-last nets, through the batcher's
+    ``predict_async``."""
     graphed, _, h, w = card_sessions
     graphed.warmup(3, h, w)  # captured already: replays only
     images, cams = _signatures(h, w)["u8-3v"]
     captures, replays = graphed.graph_captures, graphed.graph_replays
+    last = graphed.channels_last_dispatches
     handles = [graphed.predict_async(images[:n], cams[:n]) for n in (1, 2, 5, 8, 4)]
     for hd in handles:
         graphed.fetch(hd)
     assert graphed.graph_captures == captures
     assert graphed.graph_replays - replays == len(handles)
+    assert graphed.channels_last_dispatches - last == len(handles)
 
 
 _NETS = ("upsampling", "convolutions", "batch norm")
@@ -245,3 +256,20 @@ def test_the_profiler_sees_the_kernels_inside_the_graph(card_sessions):
     for cls in _NETS:
         assert want.get(cls, 0.0) > 0.0, (cls, want)
         assert abs(got.get(cls, 0.0) - want[cls]) <= 0.1 * want[cls], (cls, got, want)
+
+
+@pytest.mark.card
+def test_channels_last_replays_leave_transposes_and_upsampling_small(card_sessions):
+    """A traced bucket-8 replay at three views: cuDNN's layout transposes
+    take under 2% of the card's time and the bilinear upsampling, now
+    PyTorch's NHWC kernel, under 25% (NCHW nets: 14% and 45%; channels-last
+    on an H100: 0.5% and 19.8%, still ~12x the upsampling's bandwidth
+    bound)."""
+    graphed, _, h, w = card_sessions
+    images, cams = _signatures(h, w)["u8-3v"]
+    got = _device_seconds(graphed, images, cams, 10)
+    busy = sum(got.values())
+    shares = {cls: 100.0 * got.get(cls, 0.0) / busy for cls in ("layout transposes", "upsampling")}
+    print(f"device seconds by class: {got}; shares {shares}")
+    assert shares["layout transposes"] < 2.0, (shares, got)
+    assert shares["upsampling"] < 25.0, (shares, got)
