@@ -647,7 +647,7 @@ def serve_phase(torch, counters):
     # the same session with its graphs off agrees bit for bit
     graphs = (session.graph_captures, session.graph_replays)
     assert graphs == (6, 7), graphs
-    assert session.channels_last_dispatches == graphs[1], session.channels_last_dispatches
+    assert session.one_card  # so every replay ran channels-last
     eager = InferenceSession(cfg, state_dict=weights, device="cuda")
     eager._graphs = None  # the nets eagerly, as the CPU and a mesh run them
     for key, (imgs, cm) in {"b1_u8": (u8[:1], cams[:1]), "b3_f32": (f32[:3], cams[:3]),
@@ -2293,7 +2293,7 @@ def ddp_phase(torch, counters, smi, device="cuda", backend="nccl", h=H, w=W, pla
 # 1.099e-03 at 2 x 1 (batch-1 convs against batch 2; 5.803e-04 at 1 x 2),
 # where the data-parallel step at world size 1 gave 1.873e-04 (PR 6): the
 # random net's train-mode gradient magnifies rounding. The f64 CPU tests
-# hold the same steps to 1e-10 (tests/test_torch_tiled_mesh.py); a halved
+# hold the same steps to 1e-10 (tests/test_torch_ranks.py); a halved
 # gradient or per-rank BatchNorm statistics move grad_norm by 1e-2 or more.
 MESH_TOL, MESH_GRAD_NORM_TOL = 1e-3, 5e-3
 # The eval flush and the session over the mesh against one process (f32,

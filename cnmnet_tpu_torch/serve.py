@@ -20,9 +20,13 @@ prob ``[B, H, W]`` (3+ views with the refiner only) and normal ``[B, H, W,
   (``models/cnm.py:cast_for_compute``); the cost volume and depth->normal
   run as CUDA kernels.
 
-On one CUDA device with no mesh, each bucket batch's nets (DepthNet, the
-group averages, the RefineNet and the depth ``1 / (idepth + 1e-8)`` after
-them: ``models/cnm.py:CNMModel.nets``) run as a CUDA graph, captured on the
+Only a session on one CUDA device with no mesh (``one_card``, decided once
+at build into ``InferenceSession.one_card``) takes the steps below: CUDA
+graphs, the channels-last layout, pinned staging and the asynchronous wire.
+
+On one card each bucket batch's nets (DepthNet, the group averages, the
+RefineNet and the depth ``1 / (idepth + 1e-8)`` after them:
+``models/cnm.py:CNMModel.nets``) run as a CUDA graph, captured on the
 first dispatch of its key (``graph_key``: bucket, views, size, image
 dtype, layout and cuDNN's TF32 flag; ``warmup`` captures its signature's
 buckets) and replayed on every dispatch after: one call starts the few
@@ -34,19 +38,18 @@ share one memory pool: replays run one at a time on one stream. The CPU
 and a mesh run the same nets eagerly. ``graph_captures`` and
 ``graph_replays`` count them.
 
-On one CUDA device with no mesh the nets run channels-last, eagerly and in
-their graphs alike: the conv weights are converted once at build
+On one card the nets run channels-last, eagerly and in their graphs
+alike: the conv weights are converted once at build
 (``model.to(memory_format=torch.channels_last)``; the ``state_dict``'s
 keys and values are unchanged) and the front's reference and volume at the
 head of every pass, so cuDNN's convolutions and the upsamplings run their
 NHWC kernels with nothing transposed. Every other session (the CPU, a mesh)
-runs NCHW, as the trainer and the eval driver do.
-``channels_last_dispatches`` counts the dispatches whose nets ran
-channels-last.
+runs NCHW, as the trainer and the eval driver do. ``graph_replays`` over
+dispatches is the engaged share of both the graph and the layout.
 
 ``predict_async(images, cams) -> handle`` dispatches one batch no larger
-than the top bucket and returns without waiting: on CUDA the inputs go up
-from pinned host memory (``non_blocking``), the packed wire is copied into a
+than the top bucket and returns without waiting: on one card the inputs go
+up from pinned host memory (``non_blocking``), the packed wire is copied into a
 pinned host tensor that the handle owns, and a CUDA event is recorded after
 the copy; ``fetch(handle)`` waits on that event and unpacks. On the CPU both
 run synchronously.
@@ -195,9 +198,11 @@ def _check_batch(images, cams):
     return images, cams
 
 
-def channels_last_nets(device: torch.device, mesh: Optional[Mesh]) -> bool:
+def one_card(device: torch.device, mesh: Optional[Mesh]) -> bool:
     """Whether a session on ``device`` (over ``mesh``, None for one process)
-    runs its nets channels-last: on one CUDA device with no mesh."""
+    is on one CUDA device with no mesh: the session whose nets run as CUDA
+    graphs and channels-last, from pinned staging to an asynchronous
+    wire."""
     return mesh is None and device.type == "cuda"
 
 
@@ -280,13 +285,12 @@ class InferenceSession:
         # (padding included); rank 0 counts on a mesh
         self.frames_real = 0
         self.frames_run = 0
-        # the nets as CUDA graphs (one CUDA device, no mesh), by graph_key
+        self.one_card = one_card(self.device, self.mesh)
+        # the nets as CUDA graphs (one card), by graph_key
         self.graph_captures = 0
         self.graph_replays = 0
-        self.channels_last = channels_last_nets(self.device, self.mesh)
-        self.channels_last_dispatches = 0
         self._graphs: Optional[Dict[tuple, _Graph]] = None
-        if self.mesh is None and self.device.type == "cuda":
+        if self.one_card:
             self._graphs, self._pool = {}, torch.cuda.graph_pool_handle()
 
         from cnmnet_tpu_torch.train.state import build_model
@@ -301,7 +305,7 @@ class InferenceSession:
         else:
             init_weights(model, torch.Generator().manual_seed(seed))
         self.model = cast_for_compute(model, self.compute_dtype, self.device).eval()
-        if self.channels_last:
+        if self.one_card:
             self.model.to(memory_format=torch.channels_last)  # the 4-D tensors: conv weights
 
     def _layout(self, views: int):
@@ -316,9 +320,9 @@ class InferenceSession:
 
     def _nets(self, ref: torch.Tensor, volume: torch.Tensor, views: int):
         """``CNMModel.nets`` -> (idepth ``[B, H, W, 1]``, prob or None, depth
-        ``[B, H, W]``); a channels-last session's nets take their inputs
-        channels-last (the reference is already: a view of the images)."""
-        if self.channels_last:
+        ``[B, H, W]``); on one card the nets take their inputs channels-last
+        (the reference is already: a view of the images)."""
+        if self.one_card:
             ref, volume = (t.contiguous(memory_format=torch.channels_last) for t in (ref, volume))
         out = self.model.nets(ref, volume, views)
         if out.idepth_refined is not None:
@@ -369,7 +373,6 @@ class InferenceSession:
         else:
             with spatial_parallel(self.model, spatial):
                 idepth, prob, depth = self._nets(*self.model.front(x, cams), images.shape[1])
-        self.channels_last_dispatches += self.channels_last
         parts = {"idepth": idepth, "depth": depth[..., None], "prob": prob}
         if any(name == "normal" for name, _ in layout):
             K_inv = invert_intrinsics(cams[:, 0, 1, :3, :3])
@@ -398,17 +401,16 @@ class InferenceSession:
                 layout = self._layout(V)
                 img = torch.from_numpy(np.ascontiguousarray(images))
                 cam = torch.from_numpy(np.ascontiguousarray(cams))
-                cuda = self.mesh is None and self.device.type == "cuda"
-                if cuda:
+                if self.one_card:
                     img = img.pin_memory().to(self.device, non_blocking=True)
                     cam = cam.pin_memory().to(self.device, non_blocking=True)
             with spans.span("serve.session.forward", graph=self._graphs is not None,
-                            layout="channels_last" if self.channels_last else "nchw"):
+                            layout="channels_last" if self.one_card else "nchw"):
                 if self.mesh is not None:
                     packed = self._lead(img, cam).cpu()
                 else:
                     packed = self._forward(img, cam, layout)
-            if cuda:
+            if self.one_card:
                 with spans.span("serve.session.wire"):
                     wire = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
                     wire.copy_(packed, non_blocking=True)

@@ -6,7 +6,7 @@ upsampling inside it reads a channels-last input: no concatenation or
 group average falls back to NCHW unseen. With NCHW inputs every such input
 stays NCHW, so the CPU, mesh, training and eval paths run what they ran. A
 session runs its nets channels-last on one CUDA device with no mesh only;
-a CPU session counts no channels-last dispatch. At 32x64 with 8 planes, in
+a CPU session replays no graph (the one-card path). At 32x64 with 8 planes, in
 f64 on the CPU, where the two layouts' different sum orders leave ~1e-13
 (this file imports no JAX).
 """
@@ -32,7 +32,7 @@ from cnmnet_tpu_torch.models.layers import (  # noqa: E402
 )
 from cnmnet_tpu_torch.obs import spans  # noqa: E402
 from cnmnet_tpu_torch.ops.images import prepare_images  # noqa: E402
-from cnmnet_tpu_torch.serve import InferenceSession, channels_last_nets  # noqa: E402
+from cnmnet_tpu_torch.serve import InferenceSession, one_card  # noqa: E402
 
 H, W, P = 32, 64, 8
 CL = torch.channels_last
@@ -159,16 +159,16 @@ def test_like_layout_copies_only_where_the_layouts_differ(c):
 
 def test_only_one_cuda_device_without_a_mesh_runs_channels_last():
     """The session's rule, from what it observes: its device and its mesh."""
-    assert channels_last_nets(torch.device("cuda"), None)
-    assert not channels_last_nets(torch.device("cuda", 0), mesh=object())  # a mesh of ranks
-    assert not channels_last_nets(torch.device("cpu"), None)
+    assert one_card(torch.device("cuda"), None)
+    assert not one_card(torch.device("cuda", 0), mesh=object())  # a mesh of ranks
+    assert not one_card(torch.device("cpu"), None)
 
 
 def test_a_cpu_session_runs_nchw_and_counts_no_channels_last_dispatch():
     cfg = Config()
     cfg.model.num_planes, cfg.model.k_size = P, 5
     session = InferenceSession(cfg, seed=0, device="cpu")
-    assert not session.channels_last
+    assert not session.one_card
     assert all(m.weight.is_contiguous() for m in session.model.modules() if isinstance(m, Conv2d))
     ds = SyntheticScenes(num_samples=2, height=H, width=W, view_num=3, seed=2)
     batch = collate([ds[i] for i in range(2)])
@@ -179,6 +179,6 @@ def test_a_cpu_session_runs_nchw_and_counts_no_channels_last_dispatch():
         taken = spans.take().spans
     finally:
         spans.disable()
-    assert session.channels_last_dispatches == 0
+    assert session.graph_replays == 0
     forwards = [s for s in taken if s.name == "serve.session.forward"]
     assert [s.attrs["layout"] for s in forwards] == ["nchw"]

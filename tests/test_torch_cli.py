@@ -124,7 +124,7 @@ def test_the_default_device_needs_a_card(argv):
 
 def test_multi_process_training_waits_for_the_distribution_slice(tmp_path, monkeypatch):
     """Multi-process training runs, a tile axis included
-    (``tests/test_torch_distributed.py``, ``tests/test_torch_tiled_serve.py``):
+    (``tests/test_torch_ranks.py``):
     ``parallel.tile_axis=2`` reaches the process group with a coordinator
     address, and without one it raises before anything runs, since its rows
     split over that many processes."""

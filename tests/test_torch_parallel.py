@@ -15,7 +15,7 @@ CPU mesh, every shard run in this one process.
   (``tests/test_torch_cost_volume.py``).
 
 The collectives themselves run over two gloo processes in
-``tests/test_torch_distributed.py``.
+``tests/test_torch_ranks.py``.
 """
 
 import numpy as np

@@ -22,7 +22,7 @@ the unsharded layer in f64 within 1e-12, forward and gradient:
   rows' owners.
 
 The collectives themselves run over gloo processes in
-``tests/test_torch_tiled_mesh.py``.
+``tests/test_torch_ranks.py``.
 """
 
 import numpy as np
