@@ -29,14 +29,21 @@ source, in parallel), then:
    read just after, and on uint8 seven-view requests (six sources, 48
    pairs a bucket of 8) of batch 1, 3 (padded to 4) and 8: every dispatch
    one CUDA graph replay equal to the eager nets bit for bit, with one
-   launch of each kernel; checks shapes, ranges, unit normals, the bf16
+   launch of each kernel; the bilinear upsampling kernel inside the graphs,
+   its counter zeroed just before: 11 launches in each capture's eager pass
+   and 11 in the capture, and 11 a replay (``upsample_replayed``: 100% of
+   the replays engaged), 11 a batch of the eager nets, none in the plain
+   session; checks shapes, ranges, unit normals, the bf16
    session against an f32 one, the f32 kernel session against an f32
    session of plain versions, and that every norm layer of the bf16 session
    keeps f32 parameters and statistics;
 4. times each kernel at the shapes of buckets 1 and 8 (cost volume: 2 and
    16 pairs; depth->normal: B = 1 and 8) beside its bound, and its plain
    version at bucket 1 (CUDA events, median of 20 runs after warm-up), and
-   ``predict`` at buckets 1 and 8;
+   ``predict`` at buckets 1 and 8; the upsampling kernel on the 11 maps the
+   eager nets of phase 3 upsampled at buckets 1 and 8, three and seven
+   views (bf16), against ``F.interpolate`` (max abs error 0, equal bits),
+   the batch's time beside its bound and ``F.interpolate``'s;
 5. traces one ``predict`` at buckets 1 and 8 (torch.profiler), prints the
    device's busy time, its idle share and the kernels that take the time,
    and fails if a batch norm kernel ran with bf16 statistics;
@@ -44,7 +51,8 @@ source, in parallel), then:
    the full CNM recipe with the refiner, Adam): 8 steps of ``train_loop``
    on synthetic scenes with a ``CheckpointManager``, the launch counters
    set to 0 just before and read just after (the cost volume once a step,
-   depth->normal three times, each with a gradient), finite losses;
+   depth->normal three times, each with a gradient; the upsampling kernel
+   never in phases 6 and 7, which run NCHW), finite losses;
    restores the last checkpoint bit-equal into a fresh state; 10 steps on
    one fixed batch, whose loss must fall; the depth->normal Function's
    forward and depth gradient against plain autograd (max abs 0); one
@@ -190,7 +198,7 @@ source, in parallel), then:
    synced steps and their losses), and ``model.k_size=19`` through the
    k-generic depth->normal in a train step and an eval flush. Both launch
    counters must move in every model tool (a tool's ranks report their
-   own).
+   own), and the upsampling kernel's must not (train steps run NCHW).
 
 After phase 7, ``wide_flush_phase`` runs the eval forward on a 7-view
 flush of 19 frames at 480x640 (114 pairs: two cost-volume launches) and
@@ -198,7 +206,8 @@ holds its metrics against frame batch 1.
 
 Prints the build seconds, the kernel table as one JSON line (with each
 kernel's launches in phases 3, 6, 7, 8, 9, 10, 11, 12 and 13, their total, the
-tiled shards' times and the times at the train shape), the card's
+tiled shards' times and the times at the train shape; the upsampling
+kernel's in phase 3 and, 0, in phases 6 and 7), the card's
 name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Any failed check raises, and the script exits non-zero without that line.
@@ -602,6 +611,8 @@ def check_norms_f32(torch, model):
 def serve_phase(torch, counters):
     from cnmnet_tpu_torch.config import Config
     from cnmnet_tpu_torch.data.pipeline import normalize_images, quantize_images_u8
+    from cnmnet_tpu_torch.kernels import upsample as kups
+    from cnmnet_tpu_torch.models.layers import Upsample2x
     from cnmnet_tpu_torch.serve import InferenceSession
 
     batch = synthetic_batch(8, H, W, 3, seed=11)
@@ -626,8 +637,10 @@ def serve_phase(torch, counters):
     check_norms_f32(torch, session.model)
     session.predict(u8[:1], cams[:1])  # loads the kernels before the counted run
 
-    for c in counters.values():
+    for c in (*counters.values(), kups.upsample2x_bilinear_kernel):
         c.launches = 0
+    session.upsample_replayed = 0
+    captured = session.graph_captures
     outs = {
         "b1_u8": session.predict(u8[:1], cams[:1]),
         "b3_f32": session.predict(f32[:3], cams[:3]),
@@ -640,6 +653,16 @@ def serve_phase(torch, counters):
     print(f"launches during predict ({len(outs)} requests): {launches}")
     for name, n in launches.items():
         assert n == len(outs), f"kernel {name}: {n} launches for {len(outs)} dispatches"
+    # the upsampling kernel runs inside the nets' graphs: 11 launches a
+    # capture's eager pass and 11 in the capture itself (its counter), and 11
+    # a replay (every one at three or more views), counted by the sessions
+    captures = session.graph_captures - captured + wire16.graph_captures
+    replays = len(outs)
+    replayed = session.upsample_replayed + wire16.upsample_replayed
+    up_launches = {"capture": kups.upsample2x_bilinear_kernel.launches, "replayed": replayed}
+    print(f"upsample launches during predict: {up_launches} ({captures} captures, {replays} "
+          f"replays; engaged share {replayed / (11 * replays):.2%} of 11 a replay)")
+    assert up_launches == {"capture": 22 * captures, "replayed": 11 * replays}, up_launches
 
     # the nets replay as CUDA graphs, one a bucket and signature (three views:
     # bucket 1 and 8 uint8, bucket 4 float32, the first predict capturing
@@ -650,13 +673,26 @@ def serve_phase(torch, counters):
     assert session.one_card  # so every replay ran channels-last
     eager = InferenceSession(cfg, state_dict=weights, device="cuda")
     eager._graphs = None  # the nets eagerly, as the CPU and a mesh run them
+    # the maps the served nets upsample (phase 4 times the kernel on them)
+    served, seen = {}, []
+    hooks = [m.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+             for m in eager.model.modules() if isinstance(m, Upsample2x)]
+    before = kups.upsample2x_bilinear_kernel.launches
     for key, (imgs, cm) in {"b1_u8": (u8[:1], cams[:1]), "b3_f32": (f32[:3], cams[:3]),
                             "b8_u8": (u8, cams), **seven}.items():
+        seen.clear()
         want = eager.predict(imgs, cm)
+        if key in ("b1_u8", "b8_u8", "b1_u8_7v", "b8_u8_7v"):
+            served[(7 if key.endswith("7v") else 3, int(key[1]))] = list(seen)
         differ = [k for k in want if not np.array_equal(outs[key][k], want[k])]
         assert not differ, f"{key}: the replayed nets differ from the eager ones in {differ}"
+    for h in hooks:
+        h.remove()
+    eager_up = kups.upsample2x_bilinear_kernel.launches - before
+    assert eager_up == 11 * 6, eager_up  # the eager nets launch the kernel too
     print(f"CUDA graphs: {graphs[0]} captures, {graphs[1]} replays; the replays equal the "
-          f"eager nets bit for bit at buckets 1, 4 and 8, at three and at seven views")
+          f"eager nets bit for bit at buckets 1, 4 and 8, at three and at seven views; the "
+          f"eager nets launched the upsampling kernel {eager_up} times")
     del eager
 
     for key, out in outs.items():
@@ -684,7 +720,10 @@ def serve_phase(torch, counters):
     plain32 = InferenceSession(cfg_plain, state_dict=weights, compute_dtype="float32",
                                device="cuda")
     o32 = full32.predict(u8, cams)
+    before = kups.upsample2x_bilinear_kernel.launches
     op = plain32.predict(u8, cams)
+    # the plain session upsamples through F.interpolate (cv_backend "torch")
+    assert kups.upsample2x_bilinear_kernel.launches == before
     o16 = outs["b8_u8"]
     kernel_vs_plain = {k: np.abs(o32[k] - op[k]).max() for k in ("idepth", "prob", "normal")}
     kvp_rel_l2 = np.linalg.norm(o32["idepth"] - op["idepth"]) / np.linalg.norm(op["idepth"])
@@ -708,7 +747,53 @@ def serve_phase(torch, counters):
     # measures on the CPU at 64x96): tolerance 0.25, a twelfth of the range.
     assert rel_l2 <= 0.25 and mean_abs <= 0.25
     del full32, plain32
-    return session, weights, u8, cams, launches
+    return session, weights, u8, cams, launches, up_launches, served
+
+
+def upsample_cost(maps):
+    """``(flops, bytes)`` of one x2 bilinear upsampling of each map: each
+    output element ``h0 (w0 a + w1 b) + h1 (w0 c + w1 d)`` (9 operations in
+    f32), the input read once and the output (four times it) written once."""
+    elems = sum(x.numel() for x in maps)
+    return 9 * 4 * elems, 5 * elems * maps[0].element_size()
+
+
+def check_upsample(torch, smi, served):
+    """The upsampling kernel against ``F.interpolate`` (its plain version,
+    PyTorch's own NHWC kernel) on the maps the served nets upsample at
+    buckets 1 and 8, three and seven views (``serve_phase``), bit for bit
+    (max abs error 0), and the time of a batch's 11 launches beside its
+    bound and ``F.interpolate``'s (CUDA events, ``device_ms``). Returns
+    ``{"{views}v_b{bucket}": row}``."""
+    import torch.nn.functional as F
+
+    from cnmnet_tpu_torch.kernels import upsample as kups
+    from cnmnet_tpu_torch.kernels.ablate import device_ms
+    from cnmnet_tpu_torch.tools.roofline import bound
+
+    kernel = kups.upsample2x_bilinear_kernel
+    plain = lambda x: F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)  # noqa: E731
+    rows = {}
+    with torch.inference_mode():
+        for (views, bucket), maps in sorted(served.items()):
+            assert len(maps) == 11 and all(x.dtype == torch.bfloat16 for x in maps), (views, bucket)
+            err = max((kernel(x).float() - plain(x).float()).abs().max().item() for x in maps)
+            exact = all(torch.equal(kernel(x).view(torch.int16), plain(x).view(torch.int16))
+                        for x in maps)
+            ms = device_ms(lambda: [kernel(x) for x in maps])
+            library_ms = device_ms(lambda: [plain(x) for x in maps])
+            flops, nbytes = upsample_cost(maps)
+            bound_ms, by = bound(nbytes, flops)
+            rows[f"{views}v_b{bucket}"] = {
+                "max_abs_err": err, "bit_equal": exact, "launches": len(maps), "ms": ms,
+                "plain_ms": library_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": by, "shapes": [tuple(x.shape) for x in maps]}
+            print(f"upsample2x_bilinear {views} views bucket {bucket} (11 maps, bf16): "
+                  f"max|kernel-F.interpolate| {err:.3e}, bit-equal {exact} (must be 0, True); "
+                  f"kernel {ms:.4f} ms, F.interpolate {library_ms:.4f} ms, bound "
+                  f"{bound_ms * 1e3:.2f} us ({by}), ratio {ms / bound_ms:.2f} [{smi}]")
+            assert err == 0 and exact, (views, bucket, err)
+    return rows
 
 
 def check_batch_norm_kernels(prof_rows):
@@ -3488,8 +3573,9 @@ def scale_phase(torch, counters, smi, device="cuda", h=H, w=W, batch=8, ks="2,4,
     losses = ([dryrun["loss"], measured["loss"], census["loss"]] + verify["losses"])
     assert all(math.isfinite(v) for v in losses), losses
     if cuda:
-        for name in SCALE_TOOLS:
-            assert all(v > 0 for v in launches[name].values()), (name, launches[name])
+        for name in SCALE_TOOLS:  # train steps: both kernels, never the upsampling (NCHW)
+            got = launches[name]
+            assert all(got[n] > 0 for n in counters) and got.get("upsample", 0) == 0, (name, got)
         for name, r in bwd.items():  # the timed steps: one cost volume each
             assert r["launches"]["cost_volume"] == r["steps_timed"], (name, r["launches"])
     took = time.perf_counter() - t_phase
@@ -3513,6 +3599,7 @@ def main() -> int:
     from cnmnet_tpu_torch.kernels import cost_volume as kcv
     from cnmnet_tpu_torch.kernels.ablate import device_ms
     from cnmnet_tpu_torch.kernels import normals as kn
+    from cnmnet_tpu_torch.kernels import upsample as kups
     from cnmnet_tpu_torch.ops import cost_volume as pcv
     from cnmnet_tpu_torch.ops import normals as pn
     from cnmnet_tpu_torch.tools.profile_forward import profile_call
@@ -3566,7 +3653,7 @@ def main() -> int:
 
     # 3. the serving slice, with the launch counters
     counters = {"cost_volume": kcv.cost_volume_kernel, "depth_to_normal": kn.depth_to_normal_kernel}
-    session, weights, u8, cams, launches = serve_phase(torch, counters)
+    session, weights, u8, cams, launches, up_launches, served = serve_phase(torch, counters)
 
     # 4. times at the serving shapes (bucket 1: 2 pairs, one depth map;
     # bucket 8: 16 pairs, eight depth maps)
@@ -3605,6 +3692,9 @@ def main() -> int:
               f"ms, bound {rows[B][2] * 1e3:.2f} us ({rows[B][3]}), ratio "
               f"{rows[B][0] / rows[B][2]:.2f}")
 
+    upsample = check_upsample(torch, smi, served)
+    del served
+
     rates = {}
     for B in (1, 8):
         imgs, cm = u8[:B], cams[:B]
@@ -3634,13 +3724,16 @@ def main() -> int:
             print(f"  {ms:9.4f} ms {count:4d}x {key[:110]}")
         check_batch_norm_kernels(prof_rows)
 
-    # 6. the training slice
+    # 6. the training slice (this and phase 7 run NCHW: never the upsampling kernel)
+    up_before = kups.upsample2x_bilinear_kernel.launches
     per_step, nrm_grad_err, nt, step_ms = train_phase(torch, counters, smi, steps=8)
 
     # 7. the evaluation slice
     launches_eval, eval_s = eval_phase(torch, counters, smi)
     # 7e. the 7-view flush of 19 frames at 480x640: 114 pairs, past 2^31 costs
     launches_wide_flush = wide_flush_phase(torch, counters, smi)
+    up_train_eval = kups.upsample2x_bilinear_kernel.launches - up_before
+    assert up_train_eval == 0, up_train_eval
 
     # 8. serving under load and the command line
     launches_batcher, load = batcher_phase(torch, counters, smi, session, weights, u8, cams)
@@ -3653,7 +3746,12 @@ def main() -> int:
     launches_ddp, launches_ddp_cli = ddp_phase(torch, counters, smi)
 
     # 10. the tile axis through the conv stack, serving and evaluation on a
-    # mesh: two processes on the one card
+    # mesh: two processes on the one card, beside this one's cached blocks
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"before phase 10: this process {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+          f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved; the card "
+          f"{free / 2**30:.3f} of {total / 2**30:.3f} GiB free")
     mesh = mesh_phase(torch, counters, smi)
 
     with tempfile.TemporaryDirectory(prefix="cnm_kept_") as kept:
@@ -3712,6 +3810,14 @@ def main() -> int:
          "train_shape_bound_ms": nt["bound"], "backward": "plain autograd",
          "grad_max_abs_err": nrm_grad_err, "batch_chunk_launches": normals_chunks,
          "k_generic": {f"k{k}_b2": row for k, row in wide_k.items()}},
+        {"name": "upsample2x_bilinear", "route": "cuda",
+         "source": "cnmnet_tpu_torch/kernels/csrc/upsample.cu",
+         "replaces": None,  # the JAX package's upsamplings are XLA's
+         "launches": up_launches["capture"] + up_launches["replayed"],
+         "launches_serve": up_launches, "launches_train_eval": up_train_eval,
+         **{k: upsample["3v_b1"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+         "served": upsample},
     ]
     print(f"build_s {build_s:.2f}; predict ms/frame b1 {rates[1][0]:.3f} b8 {rates[8][0]:.3f}; "
           f"frames/s b1 {rates[1][1]:.2f} b8 {rates[8][1]:.2f}; train step ms: TF32 off "

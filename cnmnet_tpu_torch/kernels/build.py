@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cnmnet_tpu_torch"
-SOURCES = ("cost_volume", "depth_to_normal")
+SOURCES = ("cost_volume", "depth_to_normal", "upsample")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -16,6 +16,12 @@ A kernel that cannot build or launch raises; nothing falls back.
 
 Unlike the JAX package, whose TPU dispatch demoted the depth->normal
 kernel, auto selects the depth->normal kernel on CUDA.
+
+The bilinear x2 upsampling kernel has no backward and reads channels-last
+maps only, so off ``"torch"`` it takes what it can take (a channels-last
+CUDA map of bf16 or f32, channels a multiple of 8, that needs no gradient:
+the one-card serving nets) and every other map on the card keeps the plain
+version (the trainer, evaluation and a mesh run NCHW).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from cnmnet_tpu_torch.kernels import cost_volume as _cv_kernel
 from cnmnet_tpu_torch.kernels import normals as _normal_kernel
+from cnmnet_tpu_torch.kernels import upsample as _upsample_kernel
 from cnmnet_tpu_torch.ops import cost_volume as _cv_ops
 from cnmnet_tpu_torch.ops import normals as _normal_ops
 
@@ -84,8 +91,20 @@ def depth_to_normal(depth, intrinsics_inv, k_size=9, backend=None, row_offset=0)
     return _normal_ops.depth_to_normal(depth, intrinsics_inv, k_size, row_offset=row_offset)
 
 
+def upsample2x_bilinear(x, backend=None):
+    """Bilinear x2 upsampling with half-pixel centres of a ``[N, C, H, W]``
+    map (``kernels/upsample.py``)."""
+    if (_resolve(backend, x) == "cuda" and x.dtype in _upsample_kernel.DTYPES
+            and x.dim() == 4 and x.shape[1] % _upsample_kernel.CHANNEL_MULTIPLE == 0
+            and x.is_contiguous(memory_format=torch.channels_last)
+            and not (torch.is_grad_enabled() and x.requires_grad)):
+        return _upsample_kernel.upsample2x_bilinear_kernel(x)
+    return _upsample_kernel.upsample2x_bilinear_plain(x)
+
+
 def launch_counts() -> dict:
     """Each kernel's launch counter in this process (``*_kernel.launches``):
     what a rank process reports back to the process that started it."""
     return {"cost_volume": _cv_kernel.cost_volume_kernel.launches,
-            "depth_to_normal": _normal_kernel.depth_to_normal_kernel.launches}
+            "depth_to_normal": _normal_kernel.depth_to_normal_kernel.launches,
+            "upsample": _upsample_kernel.upsample2x_bilinear_kernel.launches}

@@ -41,7 +41,7 @@ from torch import nn
 from cnmnet_tpu_torch.geometry.camera import camera_from_array
 from cnmnet_tpu_torch.kernels import dispatch
 from cnmnet_tpu_torch.models.depthnet import DepthNet
-from cnmnet_tpu_torch.models.layers import is_channels_last
+from cnmnet_tpu_torch.models.layers import Upsample2x, is_channels_last
 from cnmnet_tpu_torch.models.refinenet import DepthRefineNet
 from cnmnet_tpu_torch.parallel.tiled_ops import cost_volume_tiled
 
@@ -112,12 +112,25 @@ class CNMModel(nn.Module):
         super().__init__()
         self.idepth_scale = idepth_scale
         self.num_planes = num_planes
-        self.cv_backend = cv_backend
         self.sampling = sampling
         self.use_refiner = use_refiner
         self.depth_net = DepthNet(idepth_scale, num_planes, norm, remat)
         self.refine_net = (DepthRefineNet(idepth_scale, norm, remat_refiner)
                            if use_refiner else None)
+        self.cv_backend = cv_backend
+
+    @property
+    def cv_backend(self) -> Optional[str]:
+        """The kernel backend (``kernels/dispatch``) of the cost volume and of
+        the nets' bilinear upsamplings: setting it sets every ``Upsample2x``'s."""
+        return self._cv_backend
+
+    @cv_backend.setter
+    def cv_backend(self, backend: Optional[str]) -> None:
+        self._cv_backend = backend
+        for m in self.modules():
+            if isinstance(m, Upsample2x):
+                m.backend = backend
 
     def forward(self, images: torch.Tensor, cams: torch.Tensor) -> CNMOutputs:
         """images: [B, V, H, W, 3] normalised float (view 0 = reference);

@@ -23,9 +23,12 @@ The blocks keep the memory layout their input arrives in: NCHW, or
 channels-last (NHWC strides) with the conv weights converted once
 (``model.to(memory_format=torch.channels_last)``, as a CUDA serving session
 does), where cuDNN's convolutions and the upsamplings run NHWC kernels and
-nothing is transposed. ``torch.cat`` falls back to NCHW when one input is
-not channels-last by its strides, as a 1-channel map made NCHW is, so such
-an input goes through ``like_layout`` first.
+nothing is transposed; on the card a bilinear upsampling there that needs
+no gradient is the hand kernel of ``kernels/upsample.py``
+(``kernels/dispatch.upsample2x_bilinear``).
+``torch.cat`` falls back to NCHW when one input is not channels-last by its
+strides, as a 1-channel map made NCHW is, so such an input goes through
+``like_layout`` first.
 
 Training in bf16 (``set_compute_dtype``) is flax's ``dtype=bfloat16``: each
 ``Conv2d`` casts its input, weight and bias to bf16 at use, so the
@@ -71,6 +74,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from cnmnet_tpu_torch.kernels import dispatch
 from cnmnet_tpu_torch.parallel.collectives import all_reduce_
 
 
@@ -374,9 +378,9 @@ class DownConvBlock(nn.Sequential):
         )
 
 
-def _upsample(x: torch.Tensor, mode: str) -> torch.Tensor:
+def _upsample(x: torch.Tensor, mode: str, backend=None) -> torch.Tensor:
     if mode == "bilinear":
-        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+        return dispatch.upsample2x_bilinear(x, backend)
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
@@ -387,20 +391,21 @@ def upsample_rows(rows: torch.Tensor, first: int, out, mode: str) -> torch.Tenso
     ``out``. Each kept row takes its taps inside ``rows``, or clamped at
     the image border as on the whole map."""
     a, b = out
-    return _upsample(rows, mode).narrow(2, a - 2 * first, b - a)
+    return _upsample(rows, mode, "torch").narrow(2, a - 2 * first, b - a)
 
 
-def _upsample2x(x: torch.Tensor, mode: str, spatial) -> torch.Tensor:
+def _upsample2x(x: torch.Tensor, mode: str, spatial, backend=None) -> torch.Tensor:
     if spatial is None:
-        return _upsample(x, mode)
+        return _upsample(x, mode, backend)
     rows, first = spatial.upsample_input(x, mode, f"{mode} x2 upsampling")
     return upsample_rows(rows, first, spatial.rows(spatial.level(x.shape[-1]) - 1), mode)
 
 
-def upsample2x_bilinear(x: torch.Tensor, spatial=None) -> torch.Tensor:
+def upsample2x_bilinear(x: torch.Tensor, spatial=None, backend=None) -> torch.Tensor:
     """Bilinear x2 with half-pixel centres (edge-clamped hat weights 1/4,
-    3/4); with ``spatial``, of this rank's rows."""
-    return _upsample2x(x, "bilinear", spatial)
+    3/4): ``kernels/dispatch.upsample2x_bilinear`` on ``backend``; with
+    ``spatial``, of this rank's rows, through ``F.interpolate``."""
+    return _upsample2x(x, "bilinear", spatial, backend)
 
 
 def upsample2x_nearest(x: torch.Tensor, spatial=None) -> torch.Tensor:
@@ -411,9 +416,10 @@ def upsample2x_nearest(x: torch.Tensor, spatial=None) -> torch.Tensor:
 
 class Upsample2x(nn.Module):
     spatial = None
+    backend = None  # the kernel backend (kernels/dispatch); CNMModel.cv_backend sets it
 
     def forward(self, x):
-        return upsample2x_bilinear(x, self.spatial)
+        return upsample2x_bilinear(x, self.spatial, self.backend)
 
 
 class UpConvBlock(nn.Sequential):

@@ -32,11 +32,16 @@ dtype, layout and cuDNN's TF32 flag; ``warmup`` captures its signature's
 buckets) and replayed on every dispatch after: one call starts the few
 hundred launches of the nets. The front (``CNMModel.front``: the folded
 sources, the cameras and the cost volume kernel, written straight into
-the graph's static volume), depth->normal and the wire stay eager, so both
-hand kernels launch and count (``launches``) on every dispatch. The graphs
-share one memory pool: replays run one at a time on one stream. The CPU
+the graph's static volume), depth->normal and the wire stay eager, so
+those two hand kernels launch and count (``launches``) on every dispatch.
+The graphs share one memory pool: replays run one at a time on one stream. The CPU
 and a mesh run the same nets eagerly. ``graph_captures`` and
-``graph_replays`` count them.
+``graph_replays`` count them. The nets' bilinear upsamplings launch the
+hand kernel of ``kernels/upsample.py``, inside the graph; its host counter
+moves at the capture only, so each graph keeps the launches its capture
+recorded and ``upsample_replayed`` adds them at every replay
+(``upsample_replayed / graph_replays`` is 11 at three or more views with
+the refiner: five in DepthNet, three in each RefineNet branch).
 
 On one card the nets run channels-last, eagerly and in their graphs
 alike: the conv weights are converted once at build
@@ -135,6 +140,7 @@ import torch
 from cnmnet_tpu_torch.config import Config
 from cnmnet_tpu_torch.geometry.camera import invert_intrinsics
 from cnmnet_tpu_torch.kernels import dispatch
+from cnmnet_tpu_torch.kernels import upsample as upsample_kernel
 from cnmnet_tpu_torch.models.cnm import CNMModel, cast_for_compute
 from cnmnet_tpu_torch.models.layers import init_weights
 from cnmnet_tpu_torch.models.transplant import load_flax_variables
@@ -215,12 +221,14 @@ def graph_key(images: torch.Tensor, layout, tf32: bool) -> tuple:
 
 
 class _Graph(NamedTuple):
-    """A captured ``_nets``: its static inputs and outputs."""
+    """A captured ``_nets``: its static inputs and outputs, and the
+    upsampling kernel's launches the capture recorded."""
 
     graph: "torch.cuda.CUDAGraph"
     ref: torch.Tensor
     volume: torch.Tensor
     outputs: tuple
+    upsample_launches: int
 
 
 class Handle(NamedTuple):
@@ -289,6 +297,7 @@ class InferenceSession:
         # the nets as CUDA graphs (one card), by graph_key
         self.graph_captures = 0
         self.graph_replays = 0
+        self.upsample_replayed = 0
         self._graphs: Optional[Dict[tuple, _Graph]] = None
         if self.one_card:
             self._graphs, self._pool = {}, torch.cuda.graph_pool_handle()
@@ -342,10 +351,12 @@ class InferenceSession:
             self._nets(ref, volume, views)
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        launched = upsample_kernel.upsample2x_bilinear_kernel.launches
         with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             outputs = self._nets(ref, volume, views)
         self.graph_captures += 1
-        return _Graph(graph, ref, volume, outputs)
+        return _Graph(graph, ref, volume, outputs,
+                      upsample_kernel.upsample2x_bilinear_kernel.launches - launched)
 
     def _replay(self, images: torch.Tensor, x: torch.Tensor, cams: torch.Tensor, layout):
         """The front eagerly, the volume written into the key's graph, whose
@@ -360,6 +371,7 @@ class InferenceSession:
                 g.ref.copy_(ref)
             g.graph.replay()
         self.graph_replays += 1
+        self.upsample_replayed += g.upsample_launches
         return g.outputs
 
     @torch.inference_mode()
